@@ -7,10 +7,13 @@
 Phases, one JSON line each; any failure raises and exits nonzero:
 
 1. env      torch/CUDA versions and the card (nvidia-smi name, power limit);
-2. build    nvcc builds the four kernels from ``src/repro_torch/kernels/csrc``;
+2. build    nvcc builds the four kernels from ``src/repro_torch/kernels/csrc``
+            and reports each kernel's registers and spills (ptxas); the
+            flash and rmsnorm kernels must not spill;
 3. kernels  each kernel against its plain PyTorch version on the card, at the
             serving path's shapes, with times (CUDA events), the bound and a
-            PyTorch library call as a yardstick where one exists;
+            PyTorch library call as a yardstick where one exists, and the
+            launch floor (an empty kernel, timed the same way);
 4. small    the port on the card against the port on the CPU (plain
             versions) at smoke size: prefill and decode logits;
 5. engine   full-width llama3.2-3b (random weights from seed 0) serving 16
@@ -31,6 +34,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +117,11 @@ def phase_kernels(torch, dev) -> dict:
 
     rows = {}
 
+    # the least time a launch takes on this card, timed as the kernels are:
+    # what no kernel design can remove from a small call
+    floor_ms = cuda_ms(torch, lambda i: torch.cuda._sleep(0), 1, 200)
+    rows["launch_floor_ms"] = floor_ms
+
     # rmsnorm: every block's two norms and the final one; rows = prompt tokens
     # in prefill, slots in decode.  Tolerance: one bf16 ulp.
     for R in (1024, 8):
@@ -123,7 +133,10 @@ def phase_kernels(torch, dev) -> dict:
         want = ref.rmsnorm_ref(xs[0], w)
         ulps = bf16_ulp_err(torch, got, want)
         check(ulps <= 1.0, f"rmsnorm ({R},3072) within one bf16 ulp, got {ulps}")
+        y = torch.empty_like(xs[0])
         entry = {"shape": [R, 3072], "dtype": "bfloat16",
+                 "path": ["scalar", "vector", "row"][rmsnorm.row_path(
+                     3072, 2, xs[0].data_ptr(), y.data_ptr(), w.data_ptr())],
                  "max_abs_err": float((got.float() - want.float()).abs().max()),
                  "max_err_bf16_ulps": ulps,
                  "ms": cuda_ms(torch, lambda i: rmsnorm.rmsnorm_rows(xs[i], w), k, 200),
@@ -173,15 +186,23 @@ def phase_kernels(torch, dev) -> dict:
     rows["dequant_int8"] = [de]
 
     # flash attention: prefill at full width (24 q heads over 8 kv heads,
-    # head dim 128), a ragged length, a query suffix, and head dim 64 with
-    # a window.  Tolerance: 2e-2 (bf16 output, sums in another order).
-    def sdpa(q, k, v, causal):
+    # head dim 128) at the engine's prompt lengths 1024, 512 and 128, a
+    # ragged length, a query suffix, and head dim 64 with a window.
+    # Tolerance: 2e-2 (bf16 output, P rounded to bf16, sums in another order).
+    from torch.nn.attention.bias import causal_lower_right
+
+    def sdpa(q, k, v):
+        """Causal SDPA with queries aligned to the end of the keys."""
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = dict(is_causal=True) if Sq == Sk else dict(
+            attn_mask=causal_lower_right(Sq, Sk))
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True).transpose(1, 2)
+            enable_gqa=True, **mask).transpose(1, 2)
 
     cases = [(1, 1024, 1024, 24, 8, 128, None), (1, 777, 777, 24, 8, 128, None),
-             (1, 128, 1024, 24, 8, 128, None), (2, 512, 512, 8, 2, 64, 256)]
+             (1, 128, 1024, 24, 8, 128, None), (2, 512, 512, 8, 2, 64, 256),
+             (1, 512, 512, 24, 8, 128, None), (1, 128, 128, 24, 8, 128, None)]
     for B, Sq, Sk, H, KH, D, window in cases:
         qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
         kpos = torch.arange(Sk, device=dev)[None, :]
@@ -203,11 +224,14 @@ def phase_kernels(torch, dev) -> dict:
                        "causal": True, "window": window},
              "max_abs_err": err,
              "ms": cuda_ms(torch, lambda i: fa.flash_attention_bshd(
-                 *qkv[i], causal=True, window=window), k, 20),
+                 *qkv[i], causal=True, window=window), k, 50),
              "plain_ms": cuda_ms(torch, lambda i: ref.flash_attention_ref(
                  *qkv[i], causal=True, window=window), k, 5),
-             "library_ms": (cuda_ms(torch, lambda i: sdpa(*qkv[i], Sq == Sk), k, 20)
-                            if window is None and (Sq == Sk) else None)}
+             "library_ms": None}
+        if window is None:     # SDPA has no sliding window without a dense mask
+            e["library_ms"] = cuda_ms(torch, lambda i: sdpa(*qkv[i]), k, 50)
+            e["library_max_abs_err"] = float(
+                (sdpa(*qkv[0]).float() - want.float()).abs().max())
         e["bound_ms"], e["bound_by"] = bound(nbytes, 4 * D * H * B * pairs, PEAK_BF16)
         rows.setdefault("flash_attention", []).append(e)
     torch.cuda.synchronize()
@@ -375,9 +399,9 @@ def _leaves(tree):
 
 
 def _bucket(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_wgmma_kernel" in name:
         return "flash_attention (ours)"
-    if "rmsnorm_kernel" in name:
+    if "rmsnorm_warp_kernel" in name or "rmsnorm_twopass_kernel" in name:
         return "rmsnorm (ours)"
     if "quant_kernel" in name:
         return "quant/dequant (ours)"
@@ -444,6 +468,32 @@ def phase_profile(torch, dev, cfg, params) -> dict:
     return out
 
 
+def _demangle(names: list[str]) -> list[str]:
+    """`void (anonymous namespace)::k<128, 4>(...)` -> `k<128, 4>`, by
+    c++filt where the toolkit has it; the mangled names otherwise."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return names
+    return [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", n) for n in out]
+
+
+def phase_build_resources(build, built: list[str]) -> dict:
+    """Registers and spill bytes of every kernel this process compiled;
+    fails if a flash or rmsnorm kernel spills."""
+    res = {}
+    for name in built:
+        found = build.resources(name)
+        for short, (mangled, r) in zip(_demangle(list(found)), found.items()):
+            res[short] = r
+            if "flash_fwd" in mangled or "rmsnorm" in mangled:
+                check(r["spill_bytes"] == 0, f"{short} spills {r['spill_bytes']} bytes")
+    return res
+
+
 # (name, source, the TPU kernel it replaces, tolerance against its plain version)
 KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -484,7 +534,8 @@ def main() -> int:
         t0 = time.perf_counter()
         built = build.build_all()
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "built": built, "dir": str(build.BUILD_DIR.relative_to(ROOT))})
+              "built": built, "dir": str(build.BUILD_DIR.relative_to(ROOT)),
+              "ptxas": phase_build_resources(build, built)})
     krows = phase_kernels(torch, dev) if "kernels" in phases else {}
     if krows:
         emit({"phase": "kernels", "card": smi, **krows})

@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 libraries go to ``build/repro_torch_kernels/`` at the repository root, at
-first use, under a file name that carries a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded.  A failed build raises:
-nothing falls back to the plain versions.
+first use, under a file name that carries a hash of the source, of every
+header in ``csrc/`` and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  A failed build raises: nothing
+falls back to the plain versions.  ``ptxas`` reports each kernel's registers
+and spills (``-Xptxas -v``); :func:`resources` reads that report from the
+builds of this process.
 
 The C entry points take pointers and the CUDA stream as ``c_void_p``, launch
 on the stream they are given (the wrappers pass PyTorch's current stream),
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,10 +30,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "quant", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}      # nvcc's output of each build of this process
 
 
 class KernelBuildError(RuntimeError):
@@ -49,10 +54,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` goes: its name carries a hash
+    of the source, of every ``csrc/*.cuh`` and of every flag."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:
@@ -71,6 +79,7 @@ def _start(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:
 def _finish(name: str, started) -> None:
     proc, tmp, out = started
     log, _ = proc.communicate()
+    _logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(f"nvcc failed on csrc/{name}.cu "
@@ -107,6 +116,36 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes (stores + loads) of each kernel in an
+    ``nvcc -Xptxas -v`` log, by mangled name."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": 0, "spill_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        if (m := _SPILL.search(line)):
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        if (m := _USED.search(line)):
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def resources(name: str) -> dict[str, dict[str, int]]:
+    """:func:`parse_ptxas` of the build of ``csrc/<name>.cu`` made by this
+    process; empty when this process loaded an earlier build."""
+    return parse_ptxas(_logs.get(name, ""))
 
 
 def check(err: int, what: str) -> None:

@@ -6,9 +6,9 @@ and sliding-window masks, queries aligned to the end of the keys, GQA by
 indexing).  The TPU wrapper takes (B*H, Sq, D) after a transpose; this one
 takes the (B, S, H, D) layout the model produces and hands the kernel its
 strides, so nothing is transposed or copied.  Bound on an H100 at the
-prefill shapes by operations; this first kernel runs on the CUDA cores, see
-the source's note.  On CPU tensors the wrapper runs the plain version,
-:func:`repro_torch.kernels.ref.flash_attention_ref`.
+prefill shapes by operations; both products run on the tensor cores
+(``wgmma``), see the source's note.  On CPU tensors the wrapper runs the
+plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 HEAD_DIMS = (32, 64, 128)      # head dims the kernel is compiled for
-_MAX_GRID_Y = 65535
+_MAX_Q_TILES = 65535           # grid y: query tiles of 64 rows
 
 
 @functools.cache
@@ -70,9 +70,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bshd: head dim {D} not in {HEAD_DIMS}")
-    if B * H > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention_bshd: B*H = {B * H} exceeds "
-                         f"{_MAX_GRID_Y}")
+    if -(-Sq // 64) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention_bshd: Sq = {Sq} exceeds "
+                         f"{64 * _MAX_Q_TILES} query rows")
     q, k, v = _ready(q), _ready(k), _ready(v)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     win = -1 if window is None else int(window)

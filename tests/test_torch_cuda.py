@@ -7,7 +7,8 @@ also runs on a machine without the JAX package:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerances: quant and dequant exact; rmsnorm one bf16 ulp; attention 2e-2
-(bf16 output, sums over keys in another order).
+(bf16 output, P rounded to bf16 before P.V, sums over keys in another
+order).
 """
 from __future__ import annotations
 
@@ -33,26 +34,63 @@ def _rnd(dev, *shape, dtype=torch.bfloat16, scale=1.0, seed=0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
 
-@pytest.mark.parametrize("sq,sk,h,kh,d,window", [
-    (97, 97, 6, 2, 128, None), (33, 80, 6, 2, 64, 16), (8, 4, 4, 4, 32, None),
-    (1, 77, 24, 8, 128, None), (130, 130, 8, 1, 64, 1)])
-def test_flash_matches_plain(cuda, sq, sk, h, kh, d, window):
-    q = _rnd(cuda, 2, sq, h, d, seed=1)
-    k = _rnd(cuda, 2, sk, kh, d, seed=2)
-    v = _rnd(cuda, 2, sk, kh, d, seed=3)
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,window,amp", [
+    (2, 97, 97, 6, 2, 128, None, 1.0), (2, 33, 80, 6, 2, 64, 16, 1.0),
+    (2, 8, 4, 4, 4, 32, None, 1.0), (2, 1, 77, 24, 8, 128, None, 1.0),
+    (2, 130, 130, 8, 1, 64, 1, 1.0),
+    (1, 1024, 1024, 24, 8, 128, None, 1.0),             # full width, 64-row tiles
+    (1, 63, 63, 6, 2, 128, None, 1.0), (1, 65, 65, 6, 2, 128, None, 1.0),   # tile -+ 1
+    (1, 127, 127, 6, 2, 128, None, 1.0), (1, 129, 129, 6, 2, 128, None, 1.0),
+    (1, 1, 2048, 24, 8, 128, None, 1.0),                # one query, 32 key tiles
+    (1, 200, 200, 4, 2, 64, 100, 1.0),                  # window ends mid-tile
+    (1, 150, 300, 4, 1, 32, 70, 1.0),                   # head dim 32, suffix + window
+    (3, 96, 96, 48, 16, 64, None, 1.0),                 # B*H = 144 above 132 SMs
+    (1, 256, 256, 8, 2, 128, None, 30.0),               # huge scores: no NaN or Inf
+    (1, 100, 30, 4, 2, 64, None, 1.0)])                 # Sq > Sk: 70 rows see no key
+def test_flash_matches_plain(cuda, b, sq, sk, h, kh, d, window, amp):
+    q = _rnd(cuda, b, sq, h, d, seed=1, scale=amp)
+    k = _rnd(cuda, b, sk, kh, d, seed=2, scale=amp)
+    v = _rnd(cuda, b, sk, kh, d, seed=3)
     got = fa.flash_attention_bshd(q, k, v, causal=True, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     if sq > sk:                      # queries with no valid key give 0
         assert not got[:, :sq - sk].any()
 
 
-@pytest.mark.parametrize("rows,d,dtype,wdtype", [
-    (37, 3072, torch.bfloat16, torch.bfloat16), (8, 3072, torch.bfloat16, torch.float32),
-    (5, 100, torch.float32, torch.float32), (3, 64, torch.float32, torch.bfloat16)])
-def test_rmsnorm_matches_plain(cuda, rows, d, dtype, wdtype):
-    x, w = _rnd(cuda, rows, d, dtype=dtype), _rnd(cuda, d, dtype=wdtype, seed=4)
+def _misaligned(dev, rows, d, dtype):
+    """(rows, d) whose data starts one element past a 16-byte boundary."""
+    flat = _rnd(dev, rows * d + 1, dtype=dtype)
+    return flat[1:].view(rows, d)
+
+
+@pytest.mark.parametrize("rows,d,dtype,wdtype,layout", [
+    (37, 3072, torch.bfloat16, torch.bfloat16, "row"),
+    (8, 3072, torch.bfloat16, torch.float32, "row"),
+    (5, 100, torch.float32, torch.float32, "twopass"),
+    (3, 64, torch.float32, torch.bfloat16, "twopass"),
+    (5, 3072, torch.float32, torch.bfloat16, "row"), (5, 3072, torch.float32, torch.float32, "row"),
+    (9, 1024, torch.bfloat16, torch.bfloat16, "row"), (9, 1536, torch.bfloat16, torch.float32, "row"),
+    *[(r, d, torch.bfloat16, torch.bfloat16, "row")
+      for r in (1, 8, 1024) for d in (3072, 5120, 6144)],
+    (8, 6144, torch.bfloat16, torch.float32, "row"),
+    (4, 6144, torch.float32, torch.float32, "twopass"),      # above the registers
+    (8, 3071, torch.bfloat16, torch.bfloat16, "twopass"),    # odd d
+    (8, 3072, torch.bfloat16, torch.bfloat16, "misaligned")])
+def test_rmsnorm_matches_plain(cuda, rows, d, dtype, wdtype, layout):
+    if layout == "misaligned":
+        x = _misaligned(cuda, rows, d, dtype)
+    else:
+        x = _rnd(cuda, rows, d, dtype=dtype)
+    w = _rnd(cuda, d, dtype=wdtype, seed=4)
+    want_path = rmsnorm.PATH_ROW if layout == "row" else (
+        rmsnorm.PATH_VECTOR if d % (16 // x.element_size()) == 0 and layout != "misaligned"
+        else rmsnorm.PATH_SCALAR)
+    y = torch.empty_like(x)
+    assert rmsnorm.row_path(d, x.element_size(), x.data_ptr(), y.data_ptr(),
+                            w.data_ptr()) == want_path
     got, want = rmsnorm.rmsnorm_rows(x, w).float(), ref.rmsnorm_ref(x, w).float()
     mag = want.abs().clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - (7 if dtype == torch.bfloat16 else 20))

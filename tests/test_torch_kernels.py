@@ -17,6 +17,8 @@ tests/test_torch_cuda.py.
 """
 from __future__ import annotations
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,7 +35,7 @@ except ImportError:  # deterministic fallback engine of tests/conftest.py
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, quant as pt_quant, ref, rmsnorm as pt_rn
+from repro_torch.kernels import build, ops, quant as pt_quant, ref, rmsnorm as pt_rn
 
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -199,6 +201,60 @@ def test_quant_ragged_trailing_dim_raises(shape, block):
     if len(shape) == 2:
         with pytest.raises(ValueError, match="multiple of block"):
             pt_quant.quant_int8_2d(x, block=block)
+
+
+@pytest.mark.parametrize("d,itemsize,ptrs,want", [
+    (3072, 2, (0, 256, 4096), pt_rn.PATH_ROW),        # the model's rows, bf16
+    (6144, 2, (0, 256, 4096), pt_rn.PATH_ROW),        # the widest config, bf16
+    (6144, 4, (0, 256, 4096), pt_rn.PATH_VECTOR),     # f32: above the registers
+    (3072, 4, (0, 256, 4096), pt_rn.PATH_ROW),        # f32 rows, 24 vectors a lane
+    (3840, 2, (0, 256, 4096), pt_rn.PATH_VECTOR),     # 15 vectors a lane: not compiled
+    (3072, 2, (0, 256, 4098), pt_rn.PATH_VECTOR),     # w misaligned
+    (3072, 2, (2, 256, 4096), pt_rn.PATH_SCALAR),     # x misaligned
+    (3071, 2, (0, 256, 4096), pt_rn.PATH_SCALAR),     # odd d
+    (100, 4, (0, 256, 4096), pt_rn.PATH_VECTOR),      # not whole warps of vectors
+    (64, 2, (0, 256, 4096), pt_rn.PATH_VECTOR)])
+def test_rmsnorm_path_from_shape_and_alignment(d, itemsize, ptrs, want):
+    assert pt_rn.row_path(d, itemsize, *ptrs) == want
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def test_library_path_follows_headers_and_flags(tmp_path, monkeypatch):
+    """A library's name hashes its source, every csrc/*.cuh and every flag,
+    so an edited header never loads a stale build (no nvcc needed)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build.library_path("flash_attention")
+    assert build.library_path("flash_attention") == first
+    (csrc / "tiles.cuh").write_text("#pragma once\nconstexpr int kTile = 64;\n")
+    with_header = build.library_path("flash_attention")
+    assert with_header != first
+    (csrc / "tiles.cuh").write_text("#pragma once\nconstexpr int kTile = 128;\n")
+    edited = build.library_path("flash_attention")
+    assert edited not in (first, with_header)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-Ithird_party/include",))
+    assert build.library_path("flash_attention") not in (first, with_header, edited)
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 32 bytes smem, 380 bytes cmem[0]
+"""
+    assert build.parse_ptxas(log) == {
+        "_Z3fooPf": {"registers": 168, "spill_bytes": 0},
+        "_Z3barPf": {"registers": 255, "spill_bytes": 16}}
+    assert build.resources("never_built") == {}
 
 
 # ---------------------------------------------------------------------------
