@@ -8,8 +8,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 
 1. env      torch/CUDA versions and the card (nvidia-smi name, power limit);
 2. build    nvcc builds the four kernels from ``src/repro_torch/kernels/csrc``
-            and reports each kernel's registers and spills (ptxas); the
-            flash and rmsnorm kernels must not spill;
+            and reports each kernel's registers and spills (ptxas); no
+            kernel of the four may spill;
 3. kernels  each kernel against its plain PyTorch version on the card, at the
             serving path's shapes, with times (CUDA events), the bound and a
             PyTorch library call as a yardstick where one exists, and the
@@ -22,8 +22,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             wire codec; mono and disagg tokens must be bit-identical, every
             ship's telemetry wire bytes must equal the plan, and each kernel
             must have launched during the run (counts reset just before it);
-6. profile  torch.profiler over a full-width prefill and decode step:
-            device time by kernel and the device's idle share.
+6. profile  torch.profiler over a full-width prefill, a decode step and
+            one KV ship of a 1024-token prompt (int8 codec, and none): device
+            time by kernel, the device's idle share, the host ops that take
+            the most time, and each window's wall time without the profiler.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -146,44 +148,71 @@ def phase_kernels(torch, dev) -> dict:
         entry["bound_ms"], entry["bound_by"] = bound(nbytes, 4 * R * 3072, PEAK_F32)
         rows.setdefault("rmsnorm", []).append(entry)
 
-    # quant / dequant: one 8 MiB chunk of a full-width KV leaf (4 layers of a
-    # 1024-token prompt), flattened to f32 as the wire codec does; then other
-    # block sizes.  Tolerance: exact.
+    # quant / dequant: one 8 MiB bf16 chunk of a full-width KV leaf (4 layers
+    # of a 1024-token prompt) as the KV ship hands it over, and the same
+    # elements in f32 (the gradient codec's input once it is ported); quant
+    # takes its warp path, dequant its vector path.  Then the block paths:
+    # other block sizes and a misaligned view.  Tolerance: exact.
     n = 4 * 1024 * 8 * 128
-    nbytes_q = 4 * n + n + 4 * (n // 256)
-    nbytes_d = n + 4 * (n // 256) + 4 * n
-    k = sets_for(nbytes_q)
-    xs = [rnd(4, 1024, 8, 128).reshape(1, -1).float() for _ in range(k)]
-    q, s = quant.quant_int8_2d(xs[0], block=256)
-    qr, sr = ref.quant_int8_ref(xs[0], 256)
-    check(torch.equal(q, qr) and torch.equal(s, sr), "quant 8 MiB chunk exact")
-    qs = [quant.quant_int8_2d(x, block=256) for x in xs]
-    y = quant.dequant_int8_2d(q, s, block=256)
-    check(torch.equal(y, ref.dequant_int8_ref(q, s, 256)), "dequant 8 MiB chunk exact")
+    rows["quant_int8"], rows["dequant_int8"] = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        nbytes = dt.itemsize * n + n + 4 * (n // 256)     # x (or out), q and s, once each
+        k = sets_for(nbytes)
+        xs = [rnd(1, n, dtype=dt, scale=3.0) for _ in range(k)]
+        check(quant.quant_path(256, xs[0].data_ptr()) == quant.PATH_VECTOR,
+              "quant takes the warp path on the KV chunk")
+        q, s = quant.quant_int8_2d(xs[0], block=256)
+        qr, sr = ref.quant_int8_ref(xs[0], 256)
+        check(torch.equal(q, qr) and torch.equal(s, sr), f"quant 8 MiB chunk {dt} exact")
+        check(quant.dequant_path(256, q.data_ptr()) == quant.PATH_VECTOR,
+              "dequant takes the vector path on the KV chunk")
+        y = quant.dequant_int8_2d(q, s, block=256, dtype=dt)
+        check(torch.equal(y, ref.dequant_int8_ref(q, s, 256, dt)),
+              f"dequant 8 MiB chunk to {dt} exact")
+        qs = [quant.quant_int8_2d(x, block=256) for x in xs]
+        name = str(dt).removeprefix("torch.")
+        qe = {"shape": [1, n], "dtype_in": name, "block": 256, "path": "warp",
+              "max_abs_err": 0.0, "exact": True,
+              "ms": cuda_ms(torch, lambda i: quant.quant_int8_2d(xs[i], block=256), k, 100),
+              "plain_ms": cuda_ms(torch, lambda i: ref.quant_int8_ref(xs[i], 256), k, 10),
+              "library_ms": None}
+        qe["bound_ms"], qe["bound_by"] = bound(nbytes, 3 * n, PEAK_F32)
+        de = {"shape": [1, n], "dtype_out": name, "block": 256, "path": "vector",
+              "max_abs_err": 0.0, "exact": True,
+              "ms": cuda_ms(torch, lambda i: quant.dequant_int8_2d(
+                  *qs[i], block=256, dtype=dt), k, 100),
+              "plain_ms": cuda_ms(torch, lambda i: ref.dequant_int8_ref(
+                  *qs[i], 256, dt), k, 10),
+              "library_ms": None}
+        de["bound_ms"], de["bound_by"] = bound(nbytes, n, PEAK_F32)
+        for e in (qe, de):
+            e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        rows["quant_int8"].append(qe)
+        rows["dequant_int8"].append(de)
+        del xs, qs
     extra = []
-    for R, nn, block in ((3, 768, 256), (5, 700, 100), (2, 96, 1)):
-        x = rnd(R, nn, dtype=torch.float32, scale=7.0)
-        x[0, :block] = 0.0
-        qb, sb = quant.quant_int8_2d(x, block=block)
-        qbr, sbr = ref.quant_int8_ref(x, block)
-        check(torch.equal(qb, qbr) and torch.equal(sb, sbr), f"quant block={block} exact")
-        for dt in (torch.float32, torch.bfloat16):
-            check(torch.equal(quant.dequant_int8_2d(qb, sb, block=block, dtype=dt),
-                              ref.dequant_int8_ref(qb, sb, block, dt)),
-                  f"dequant block={block} {dt} exact")
-        extra.append({"shape": [R, nn], "block": block, "exact": True})
-    qe = {"shape": [1, n], "block": 256, "max_abs_err": 0.0, "exact": True,
-          "ms": cuda_ms(torch, lambda i: quant.quant_int8_2d(xs[i], block=256), k, 100),
-          "plain_ms": cuda_ms(torch, lambda i: ref.quant_int8_ref(xs[i], 256), k, 10),
-          "library_ms": None, "other_blocks": extra}
-    qe["bound_ms"], qe["bound_by"] = bound(nbytes_q, 3 * n, PEAK_F32)
-    de = {"shape": [1, n], "block": 256, "max_abs_err": 0.0, "exact": True,
-          "ms": cuda_ms(torch, lambda i: quant.dequant_int8_2d(*qs[i], block=256), k, 100),
-          "plain_ms": cuda_ms(torch, lambda i: ref.dequant_int8_ref(*qs[i], 256), k, 10),
-          "library_ms": None}
-    de["bound_ms"], de["bound_by"] = bound(nbytes_d, n, PEAK_F32)
-    rows["quant_int8"] = [qe]
-    rows["dequant_int8"] = [de]
+    for R, nn, block, misaligned in ((3, 768, 256, False), (3, 768, 256, True),
+                                     (5, 700, 100, False), (2, 96, 1, False),
+                                     (4, 21, 7, False), (4, 144, 48, False)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = rnd(R * nn + misaligned, dtype=dt, scale=7.0)[int(misaligned):].view(R, nn)
+            x[0, :block] = 0.0
+            qb, sb = quant.quant_int8_2d(x, block=block)
+            qbr, sbr = ref.quant_int8_ref(x, block)
+            check(torch.equal(qb, qbr) and torch.equal(sb, sbr),
+                  f"quant block={block} {dt} misaligned={misaligned} exact")
+            for odt in (torch.float32, torch.bfloat16):
+                check(torch.equal(quant.dequant_int8_2d(qb, sb, block=block, dtype=odt),
+                                  ref.dequant_int8_ref(qb, sb, block, odt)),
+                      f"dequant block={block} to {odt} exact")
+            extra.append({"shape": [R, nn], "block": block,
+                          "dtype_in": str(dt).removeprefix("torch."),
+                          "misaligned": misaligned,
+                          "quant_path": ["block", "warp"][quant.quant_path(block, x.data_ptr())],
+                          "dequant_path": ["block", "vector"][quant.dequant_path(
+                              block, qb.data_ptr())],
+                          "exact": True})
+    rows["quant_int8"][0]["other_blocks"] = extra
 
     # flash attention: prefill at full width (24 q heads over 8 kv heads,
     # head dim 128) at the engine's prompt lengths 1024, 512 and 128, a
@@ -403,7 +432,7 @@ def _bucket(name: str) -> str:
         return "flash_attention (ours)"
     if "rmsnorm_warp_kernel" in name or "rmsnorm_twopass_kernel" in name:
         return "rmsnorm (ours)"
-    if "quant_kernel" in name:
+    if re.search(r"quant_(warp|block|vec)_kernel", name):
         return "quant/dequant (ours)"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
@@ -412,10 +441,18 @@ def _bucket(name: str) -> str:
 
 
 def phase_profile(torch, dev, cfg, params) -> dict:
-    """torch.profiler over one full-width prefill of 1024 tokens and over
-    decode steps of 8 slots against a 2048-token cache: device time per
-    call by kernel, and the share of the host-clock time the device idles."""
+    """torch.profiler over one full-width prefill of 1024 tokens, over decode
+    steps of 8 slots against a 2048-token cache, and over one KV ship of a
+    1024-token prompt with the int8 codec and without one: device time per
+    call by kernel, the share of the host-clock time the device idles, the
+    torch ops' own host time (the rest of the wall time is Python and the
+    wrappers), and the host-clock time of the same calls without the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import CommConfig
+    from repro_torch.core.kvship import plan_kv_ship, ship_kv
+    from repro_torch.core.path import WAN_LONDON_POZNAN, WidePath
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.models.param import tree_init
     model = build_model(cfg)
@@ -424,16 +461,31 @@ def phase_profile(torch, dev, cfg, params) -> dict:
     cache = tree_init(model.cache_defs(8, 2048), 0, device=dev)
     pos = torch.arange(8, device=dev) * 128 + 512
     dtok = torch.randint(1, cfg.vocab_size, (8, 1), generator=g, device=dev)
+    kv_shape = (cfg.num_layers, 1024, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = {n: torch.randn(kv_shape, generator=g, device=dev).to(torch.bfloat16)
+          for n in ("k", "v")}
+    plans = {c: plan_kv_ship(kv, WidePath(axis="pod", comm=CommConfig(streams=16, compress=c),
+                                          link=WAN_LONDON_POZNAN, name="kvship"))
+             for c in ("int8", "none")}
     windows = {
         "prefill_1024": (lambda: model.prefill(params, {"tokens": toks}), 3),
         "decode_step_b8_cache2048": (
-            lambda: model.decode_step(params, cache, pos, dtok), 10)}
+            lambda: model.decode_step(params, cache, pos, dtok), 10),
+        # the same ship without a codec: what the int8 codec adds to a ship
+        "ship_kv_int8_1024": (lambda: ship_kv(kv, plans["int8"], 10_000), 10),
+        "ship_kv_none_1024": (lambda: ship_kv(kv, plans["none"], 10_001), 10)}
     out = {}
     with torch.inference_mode():
         for name, (fn, n) in windows.items():
             fn()
             fn()
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            plain_wall_ms = 1e3 * (time.perf_counter() - t0) / n
+            ops.reset_launch_counts()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -441,15 +493,17 @@ def phase_profile(torch, dev, cfg, params) -> dict:
                     fn()
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0) / n
-            kernels = {}
+            ours = {k: v / n for k, v in ops.launch_counts().items()}
+            kernels, host = {}, {}
             for e in prof.key_averages():
                 if not str(e.device_type).endswith("CUDA"):
+                    host[e.key] = (e.self_cpu_time_total / 1e3 / n, e.count / n)
                     continue
                 us = getattr(e, "self_device_time_total", None)
                 if us is None:
                     us = e.self_cuda_time_total
                 if us > 0:
-                    kernels[e.key] = (us / 1e3 / n, e.count // n)
+                    kernels[e.key] = (us / 1e3 / n, e.count / n)
             busy = sum(ms for ms, _ in kernels.values())
             buckets = {}
             for k, (ms, cnt) in kernels.items():
@@ -457,14 +511,23 @@ def phase_profile(torch, dev, cfg, params) -> dict:
                 b[0] += ms
                 b[1] += cnt
             top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+            top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:10]
             out[name] = {
                 "wall_ms_per_call": wall_ms,
+                "wall_ms_per_call_unprofiled": plain_wall_ms,
                 "device_busy_ms_per_call": busy if kernels else None,
                 "device_idle_share": (1 - busy / wall_ms) if kernels else None,
+                "host_ops_self_ms_per_call": sum(ms for ms, _ in host.values()),
+                "launches_per_call": sum(v[1] for v in buckets.values()),
+                "our_kernel_launches_per_call": ours,
                 "by_bucket_ms": {k: round(v[0], 4) for k, v in sorted(
                     buckets.items(), key=lambda kv: -kv[1][0])},
+                "share_of_busy_by_bucket": {k: v[0] / busy for k, v in buckets.items()}
+                if busy else None,
                 "launches_per_call_by_bucket": {k: v[1] for k, v in buckets.items()},
-                "top_kernels": [[k[:90], round(ms, 4), cnt] for k, (ms, cnt) in top]}
+                "top_kernels": [[k[:90], round(ms, 4), cnt] for k, (ms, cnt) in top],
+                "top_host_ops_self_ms": [[k[:60], round(ms, 4), cnt]
+                                         for k, (ms, cnt) in top_host]}
     return out
 
 
@@ -483,13 +546,13 @@ def _demangle(names: list[str]) -> list[str]:
 
 def phase_build_resources(build, built: list[str]) -> dict:
     """Registers and spill bytes of every kernel this process compiled;
-    fails if a flash or rmsnorm kernel spills."""
+    fails if a flash, rmsnorm, quant or dequant kernel spills."""
     res = {}
     for name in built:
         found = build.resources(name)
         for short, (mangled, r) in zip(_demangle(list(found)), found.items()):
             res[short] = r
-            if "flash_fwd" in mangled or "rmsnorm" in mangled:
+            if any(t in mangled for t in ("flash_fwd", "rmsnorm", "quant_")):
                 check(r["spill_bytes"] == 0, f"{short} spills {r['spill_bytes']} bytes")
     return res
 

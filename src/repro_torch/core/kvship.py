@@ -138,7 +138,10 @@ def _encode_decode(arr: torch.Tensor, compress: str) -> tuple:
     ``none`` hands the chunk on unchanged; ``bf16``/``int8`` round-trip
     through the wire dtype on the chunk's device (int8 flattens to 1-D and
     pads to the quantization block, so padding waste never exceeds
-    QBLOCK-1 elements per chunk)."""
+    QBLOCK-1 elements per chunk).  The int8 kernels take the chunk in its
+    own dtype and give it back in that dtype, with no cast pass around them:
+    widening bf16 to f32 is exact, and the dequant rounds its f32 product to
+    the chunk's dtype to nearest even, as the reference's cast does."""
     if compress == "none":
         return arr, leaf_bytes(arr)
     if compress == "bf16":
@@ -148,15 +151,14 @@ def _encode_decode(arr: torch.Tensor, compress: str) -> tuple:
         raise ValueError(f"unknown KV wire codec {compress!r}; "
                          f"have none|bf16|int8")
     from repro_torch.kernels import ops
-    flat = arr.reshape(-1).to(torch.float32)
+    flat = arr.reshape(-1)
     pad = (-flat.shape[0]) % QBLOCK
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     q, s = ops.quant_int8(flat, block=QBLOCK)
     wire = leaf_bytes(q) + leaf_bytes(s)
-    y = ops.dequant_int8(q, s, block=QBLOCK, dtype=torch.float32)
-    y = y[:arr.numel()].reshape(arr.shape).to(arr.dtype)
-    return y, wire
+    y = ops.dequant_int8(q, s, block=QBLOCK, dtype=arr.dtype)
+    return y[:arr.numel()].reshape(arr.shape), wire
 
 
 def ship_kv(kv: dict, plan: KVShipPlan, rid: int, *,

@@ -110,6 +110,107 @@ def test_quant_dequant_exact(cuda, rows, n, block):
                            ref.dequant_int8_ref(q, s, block, dt))
 
 
+QUANT_CASES = ("kv_chunk", "zero_block", "at_127_scale", "ties", "partial_thread_block",
+               "misaligned", "block_100", "block_48", "block_7", "block_1")
+
+
+def _quant_input(dev, case, dtype):
+    """(x, block) of one quant case: 3 blocks a row unless stated."""
+    block = {"block_100": 100, "block_48": 48, "block_7": 7, "block_1": 1}.get(case, 256)
+    if case == "kv_chunk":               # one 8 MiB bf16 chunk of the KV ship
+        return _rnd(dev, 1, 4 * 1024 * 8 * 128, dtype=dtype, scale=3.0, seed=5), block
+    rows = 13 if case == "partial_thread_block" else 4   # 39 blocks: 8 warps a block
+    n = 3 * block
+    if case == "misaligned":             # one element past a 16-byte boundary
+        return _rnd(dev, rows * n + 1, dtype=dtype, scale=5.0, seed=5)[1:].view(rows, n), block
+    x = _rnd(dev, rows, n, dtype=torch.float32, scale=5.0, seed=5)
+    if case == "zero_block":
+        x[1, block:2 * block] = 0.0
+    elif case == "at_127_scale":         # every block reaches +-127 * 2^e exactly
+        g = torch.Generator(device=dev).manual_seed(6)
+        k = torch.randint(-127, 128, (rows, 3, block), generator=g, device=dev).float()
+        k[:, :, 0], k[:, :, 1] = 127.0, -127.0
+        e = torch.arange(-6, -6 + rows * 3, device=dev, dtype=torch.float32)
+        x = (k * torch.exp2(e).reshape(rows, 3, 1)).reshape(rows, n)
+    elif case == "ties":                 # scale 1: every k + 0.5 is a tie
+        row = torch.cat([torch.tensor([127.0, -127.0], device=dev),
+                         torch.arange(-127, 127, device=dev).float() + 0.5])
+        x = row.repeat(rows, 3)
+    return x.to(dtype), block
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quant_paths_exact(cuda, case, dtype):
+    """The warp path (block 256, aligned) and the block path (other blocks,
+    or a misaligned view) each equal the plain version bit for bit."""
+    x, block = _quant_input(cuda, case, dtype)
+    want_path = (quant.PATH_VECTOR if block == 256 and case != "misaligned"
+                 else quant.PATH_BLOCK)
+    assert quant.quant_path(block, x.data_ptr()) == want_path
+    q, s = quant.quant_int8_2d(x, block=block)
+    qr, sr = ref.quant_int8_ref(x, block)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    if case == "zero_block":
+        assert float(s[1, 1]) == 1.0 and not q[1, block:2 * block].any()
+    if case == "at_127_scale":
+        assert bool((q[:, 0::block] == 127).all() and (q[:, 1::block] == -127).all())
+    if case == "ties":                   # half to even: -126.5 -> -126, 0.5 -> 0, 1.5 -> 2
+        assert q[0, 2:8].tolist() == [-126, -126, -124, -124, -122, -122]
+        assert q[0, 129:131].tolist() == [0, 2]
+
+
+DEQUANT_CASES = ("kv_chunk", "partial_thread_block", "block_48", "misaligned",
+                 "block_100", "block_7", "block_1")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", DEQUANT_CASES)
+def test_dequant_paths_exact(cuda, case, dtype):
+    """The vector path (block a multiple of 16, q aligned; block 48 takes the
+    division, 256 the shift) and the block path, to bf16 and f32."""
+    x, block = _quant_input(cuda, "block_48" if case == "misaligned" else case,
+                            torch.float32)
+    q, s = ref.quant_int8_ref(x, block)
+    if case == "misaligned":             # q one byte past a 16-byte boundary
+        flat = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+        flat[1:].copy_(q.reshape(-1))
+        q = flat[1:].view(q.shape)
+    want_path = (quant.PATH_VECTOR if block % 16 == 0 and case != "misaligned"
+                 else quant.PATH_BLOCK)
+    assert quant.dequant_path(block, q.data_ptr()) == want_path
+    got = quant.dequant_int8_2d(q, s, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, ref.dequant_int8_ref(q, s, block, dtype))
+
+
+def test_quant_rejects_other_input_types(cuda):
+    for dt in (torch.float16, torch.int32):
+        with pytest.raises(TypeError, match="quant_int8_2d"):
+            quant.quant_int8_2d(torch.zeros((2, 256), dtype=dt, device=cuda))
+    with pytest.raises(TypeError, match="dequant_int8_2d"):
+        quant.dequant_int8_2d(torch.zeros((2, 256), dtype=torch.int8, device=cuda),
+                              torch.ones((2, 1), device=cuda), dtype=torch.float16)
+
+
+def test_int8_kv_ship_codec_keeps_bf16_and_launches_once_each(cuda):
+    """kvship's int8 codec hands a bf16 chunk to the kernels as it is: one
+    quant and one dequant launch, bf16 out, equal to the plain versions."""
+    from repro_torch.core import kvship
+    arr = _rnd(cuda, 4, 100, 8, 128, scale=3.0, seed=7)
+    ops.reset_launch_counts()
+    got, wire = kvship._encode_decode(arr, "int8")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["quant_int8"] == 1
+    assert ops.launch_counts()["dequant_int8"] == 1
+    q, s = ref.quant_int8_ref(arr.reshape(-1), 256)
+    want = ref.dequant_int8_ref(q, s, 256, torch.bfloat16).reshape(arr.shape)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert wire == arr.numel() + 4 * (arr.numel() // 256)
+
+
 def test_dispatch_launches_the_kernels_and_counts(cuda):
     ops.reset_launch_counts()
     x = _rnd(cuda, 4, 256)

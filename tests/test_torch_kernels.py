@@ -185,6 +185,79 @@ def test_quant_dequant_exact_against_reference(R, nb, block, scale):
         np.testing.assert_array_equal(_np(got), _np(want))
 
 
+@pytest.mark.parametrize("R,nb,block,scale", [
+    (3, 2, 256, 1.0), (1, 16, 256, 40.0), (17, 1, 256, 1e-3), (5, 3, 100, 7.0),
+    (2, 4, 7, 1e3), (4, 9, 1, 0.5)])
+def test_quant_dequant_bf16_exact_against_reference(R, nb, block, scale):
+    """bf16 in, as the KV ship hands a chunk over: the port casts to f32
+    inside quant, as the JAX kernel casts in its body; dequant to f32 and
+    to bf16 (one rounding of the f32 product)."""
+    n = nb * block
+    jx, x = _pair(17, (R, n), "bfloat16", scale)
+    x[0, :block] = 0.0
+    jx = jx.at[0, :block].set(0.0)
+    q, s = ops.quant_int8(x, block=block)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert float(s[0, 0]) == 1.0 and not q[0, :block].any()
+    qr, sr = jref.quant_int8_ref(jx, block)
+    np.testing.assert_array_equal(_np(q), np.asarray(qr))
+    np.testing.assert_array_equal(_np(s), np.asarray(sr))
+    if block == 256:
+        qk, sk = jops.quant_int8(jx, block=block, impl="pallas_interpret")
+        np.testing.assert_array_equal(_np(q), np.asarray(qk))
+        np.testing.assert_allclose(_np(s), np.asarray(sk), rtol=1e-6)
+    for dtype in ("float32", "bfloat16"):
+        jdt, tdt = DT[dtype]
+        got = ops.dequant_int8(q, s, block=block, dtype=tdt)
+        assert got.dtype == tdt
+        jq, js = jnp.asarray(_np(q)), jnp.asarray(_np(s))
+        np.testing.assert_array_equal(_np(got), _np(jref.dequant_int8_ref(jq, js, block, jdt)))
+        if block == 256:
+            np.testing.assert_array_equal(_np(got), _np(jops.dequant_int8(
+                jq, js, block=block, dtype=jdt, impl="pallas_interpret")))
+
+
+@pytest.mark.parametrize("block,ptr,want", [
+    (256, 0, pt_quant.PATH_VECTOR),       # the KV ship's block, aligned chunk
+    (256, 4096 + 512, pt_quant.PATH_VECTOR),
+    (256, 2, pt_quant.PATH_BLOCK),        # a narrow view one bf16 past 16 bytes
+    (256, 8, pt_quant.PATH_BLOCK),
+    (128, 0, pt_quant.PATH_BLOCK),        # the warp path is compiled for 256 only
+    (100, 0, pt_quant.PATH_BLOCK), (7, 0, pt_quant.PATH_BLOCK), (1, 0, pt_quant.PATH_BLOCK)])
+def test_quant_path_from_block_and_alignment(block, ptr, want):
+    assert pt_quant.quant_path(block, ptr) == want
+
+
+@pytest.mark.parametrize("block,ptr,want", [
+    (256, 0, pt_quant.PATH_VECTOR), (48, 0, pt_quant.PATH_VECTOR),
+    (16, 4096, pt_quant.PATH_VECTOR),
+    (256, 1, pt_quant.PATH_BLOCK),        # q one byte past 16
+    (100, 0, pt_quant.PATH_BLOCK), (8, 0, pt_quant.PATH_BLOCK), (1, 0, pt_quant.PATH_BLOCK)])
+def test_dequant_path_from_block_and_alignment(block, ptr, want):
+    assert pt_quant.dequant_path(block, ptr) == want
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 5, 2, 8), "bfloat16"),
+                                         ((2, 7, 3, 16), "bfloat16"),
+                                         ((3, 5, 2, 8), "float32")])
+def test_int8_encode_decode_matches_reference(shape, dtype):
+    """The KV ship's int8 codec on a chunk whose length is not a multiple of
+    the 256-element block (it pads): the port hands the chunk to the kernels
+    in its own dtype, the JAX package casts to f32 around them; the decoded
+    chunk and the wire bytes are the same."""
+    from repro.core import kvship as j_kvship
+    from repro_torch.core import kvship
+    x = (np.random.default_rng(18).standard_normal(shape) * 3.0).astype(np.float32)
+    assert x.size % kvship.QBLOCK
+    jdt, tdt = DT[dtype]
+    jx, tx = jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
+    want, want_wire = j_kvship._encode_decode(np.asarray(jx), "int8")
+    got, wire = kvship._encode_decode(tx, "int8")
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    assert wire == want_wire
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 def test_quant_round_half_to_even_and_clip():
     # amax 127 -> scale 1: x / scale is x itself, so ties round to even
     x = torch.tensor([[0.5, 1.5, 2.5, -0.5, -2.5, 127.0, -127.0, 3.49]])
