@@ -41,11 +41,18 @@
 //   writes the mean of V there; the JAX package's CPU path writes 0).
 // - The grid is (B*H, query tiles) with the heaviest causal tiles first, so
 //   the last wave is not a tail of long tiles.
+// - Head dim 120 (h2o-danube-3-4b) runs the D = 128 instantiation: the
+//   loads zero-fill columns 120..127 in shared memory, which leaves Q K^T
+//   unchanged and gives zero output columns, and the store drops them.
+// - With a non-null `lse` the kernel also writes each row's log-sum-exp of
+//   its scaled logits in the exp2 domain, m * scale * log2(e) + log2(l),
+//   from which flash_attention_bwd.cu recomputes P.
 //
 // Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8; chip_smoke.py's build phase
-// prints them for every build and fails on a spill): 156 registers per
-// thread at D = 128, 109 at D = 64, 112 at D = 32, no spills. Shared memory
-// per block is dynamic: Q and the two-stage K/V ring, 5 * 64 * D * 2 bytes
+// prints them for every build and fails on a spill): 158 registers per
+// thread at D = 128, 157 at D = 120, 109 at D = 64, 112 at D = 32, no
+// spills. Shared memory per block is dynamic: Q and the two-stage K/V
+// ring, 5 * 64 * D * 2 bytes
 // plus 1 KiB of alignment, 81 KiB at D = 128, so two blocks share an SM
 // (registers would allow three). The products wait for each other (no
 // second warpgroup or producer warp overlaps the softmax with the MMAs);
@@ -95,21 +102,24 @@ struct Tile {
   }
 };
 
-// cp.async of ROWS rows of D bf16 into a Tile: global rows row0 + r (row
-// stride `ss` elements from `src`); rows at or past `limit` are zero-filled.
-// Each thread walks one 16-byte column with a running pointer, so the
-// unrolled loop keeps one address live, not one per row.
-template <int D, int ROWS>
+// cp.async of ROWS rows of DR bf16 into a Tile of width D >= DR: global
+// rows row0 + r (row stride `ss` elements from `src`); rows at or past
+// `limit`, and the columns DR .. D - 1 of every row, are zero-filled (zero
+// columns leave Q K^T unchanged and give zero output columns, which the
+// store drops). Each thread walks one 16-byte column with a running
+// pointer, so the unrolled loop keeps one address live, not one per row.
+template <int D, int DR, int ROWS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           int64_t ss, int row0, int limit, int tid) {
   constexpr int CH = D / 8, RS = kThreads / CH;
   static_assert(ROWS % RS == 0, "whole rows per pass");
   const int c = tid % CH, r0 = tid / CH;
-  const __nv_bfloat16* p = src + (int64_t)(row0 + r0) * ss + c * 8;
+  const bool col_ok = c < DR / 8;
+  const __nv_bfloat16* p = src + (int64_t)(row0 + r0) * ss + (col_ok ? c * 8 : 0);
 #pragma unroll
   for (int i = 0; i < ROWS / RS; ++i) {
     const int r = r0 + i * RS;
-    const bool ok = row0 + r < limit;
+    const bool ok = col_ok && row0 + r < limit;
     cp_async16(smem_u32(dst + Tile<D>::off(r, c)), ok ? p : src, ok);
     p += RS * ss;
   }
@@ -122,17 +132,18 @@ __device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a, uint64_t
   else wgmma_rs_m64n32_tb(acc, a, db);
 }
 
-template <int D>
+template <int D, int DR>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       int H, int group, int Sq, int Sk,
+                       float* __restrict__ lse, int H, int group, int Sq, int Sk,
                        int64_t q_sb, int64_t q_ss, int64_t q_sh,
                        int64_t k_sb, int64_t k_ss, int64_t k_sh,
                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
                        int64_t o_sb, int64_t o_ss, int64_t o_sh,
                        float scale_log2, int causal, int window) {
-  constexpr int CH = D / 8;        // 16-byte chunks per row
+  constexpr int CH = D / 8;        // 16-byte chunks per stored row
+  constexpr int CHR = DR / 8;      // of which hold the head dim
   constexpr int KS = D / 16;       // k16 steps of Q K^T
   constexpr int NT = kBK / 8;      // n8 column groups of S
   constexpr int DT = D / 8;        // n8 column groups of O
@@ -162,11 +173,12 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
   if (n_tiles == 0) {   // no row of this block sees a key
-    for (int idx = tid; idx < kBQ * CH; idx += kThreads) {
-      const int r = idx / CH, c = idx % CH;
+    for (int idx = tid; idx < kBQ * CHR; idx += kThreads) {
+      const int r = idx / CHR, c = idx % CHR;
       if (q0 + r < Sq)
         *reinterpret_cast<uint4*>(ob + (int64_t)(q0 + r) * o_ss + c * 8) = make_uint4(0, 0, 0, 0);
     }
+    if (lse != nullptr && tid < kBQ && q0 + tid < Sq) lse[(int64_t)bh * Sq + q0 + tid] = INFINITY;
     return;
   }
 
@@ -174,10 +186,10 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const __nv_bfloat16* vb = v + b * v_sb + kh * v_sh;
   auto load_kv = [&](int tile, int stage) {
     const int t0 = t_begin + tile * kBK;
-    load_tile<D, kBK>(sK + stage * L::kElems, kb, k_ss, t0, Sk, tid);
-    load_tile<D, kBK>(sV + stage * L::kElems, vb, v_ss, t0, Sk, tid);
+    load_tile<D, DR, kBK>(sK + stage * L::kElems, kb, k_ss, t0, Sk, tid);
+    load_tile<D, DR, kBK>(sV + stage * L::kElems, vb, v_ss, t0, Sk, tid);
   };
-  load_tile<D, kBQ>(sQ, qb, q_ss, q0, Sq, tid);   // Q and tile 0: one group
+  load_tile<D, DR, kBQ>(sQ, qb, q_ss, q0, Sq, tid);   // Q and tile 0: one group
   load_kv(0, 0);
   cp_async_commit();
 
@@ -280,6 +292,11 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[hr] = l > 0.f ? 1.f / l : 0.f;
+    // log-sum-exp of the row's scaled logits in the exp2 domain, for the
+    // backward: p = exp2(s * scale_log2 - lse); +inf for a row with no key
+    const int row = q0 + warp * 16 + g + 8 * hr;
+    if (lse != nullptr && t4 == 0 && row < Sq)
+      lse[(int64_t)bh * Sq + row] = l > 0.f ? fmaf(m_run[hr], scale_log2, log2f(l)) : INFINITY;
   }
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt)
@@ -295,7 +312,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 #pragma unroll
     for (int i = 0; i < 16 / RS; ++i) {
       const int r = warp * 16 + r0 + i * RS;
-      if (q0 + r < Sq)
+      if (q0 + r < Sq && c < CHR)
         *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(sO + L::off(r, c));
       p += RS * o_ss;
     }
@@ -305,22 +322,23 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, H, KH, Sq, Sk;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float scale;
   int causal, window;
 };
 
-template <int D>
+template <int D, int DR>
 int launch(const Args& a, cudaStream_t st) {
   const int smem = 5 * Tile<D>::kElems * (int)sizeof(__nv_bfloat16) + 1024;
-  auto kern = flash_fwd_wgmma_kernel<D>;
+  auto kern = flash_fwd_wgmma_kernel<D, DR>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.B * a.H, (a.Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, st>>>(
       (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k, (const __nv_bfloat16*)a.v,
-      (__nv_bfloat16*)a.o, a.H, a.H / a.KH, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb,
+      (__nv_bfloat16*)a.o, a.lse, a.H, a.H / a.KH, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb,
       a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh,
       a.scale * 1.4426950408889634f, a.causal, a.window);
   return (int)cudaGetLastError();
@@ -331,24 +349,28 @@ int launch(const Args& a, cudaStream_t st) {
 extern "C" {
 // q: (B, Sq, H, D), k/v: (B, Sk, KH, D), o: (B, Sq, H, D), all bf16 with unit
 // stride on D; the other strides are in elements. window < 0: no window.
-// Returns the cudaError_t of the launch; 1 (cudaErrorInvalidValue) for a D
-// this file was not compiled for.
-int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+// lse: null, or (B, H, Sq) f32, contiguous: each row's log-sum-exp in the
+// exp2 domain (+inf for a row with no valid key), saved for the backward.
+// D = 120 runs the D = 128 tiles with the last 8 columns zero in shared
+// memory. Returns the cudaError_t of the launch; 1 (cudaErrorInvalidValue)
+// for a D this file was not compiled for.
+int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int H, int KH, int Sq, int Sk, int D,
                    int64_t q_sb, int64_t q_ss, int64_t q_sh,
                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
                    int64_t o_sb, int64_t o_ss, int64_t o_sh,
                    float scale, int causal, int window, void* stream) {
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 32 && D != 64 && D != 120 && D != 128) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
-  const Args a{q, k, v, o, B, H, KH, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+  const Args a{q, k, v, o, lse, B, H, KH, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal, window};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch<32>(a, st);
-    case 64: return launch<64>(a, st);
-    default: return launch<128>(a, st);
+    case 32: return launch<32, 32>(a, st);
+    case 64: return launch<64, 64>(a, st);
+    case 120: return launch<128, 120>(a, st);
+    default: return launch<128, 128>(a, st);
   }
 }
 }

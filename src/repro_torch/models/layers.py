@@ -1,5 +1,5 @@
-"""Shared neural-net layers, forward only: norm, RoPE, attention (prefill and
-cached decode), SwiGLU MLP.
+"""Shared neural-net layers: norm, RoPE, attention (train / prefill and
+cached decode), SwiGLU MLP, chunked cross-entropy.
 
 Conventions, as in the JAX package:
   * activations are (B, S, ...);
@@ -8,15 +8,19 @@ Conventions, as in the JAX package:
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Differentiable through :class:`repro_torch.kernels.ops.RMSNormFn`: the
+    JAX package's ``custom_vjp``, dx in x's dtype, dw in w's."""
     return ops.rmsnorm(x, w, eps=eps)
 
 
@@ -146,3 +150,48 @@ def decode_attention(p: dict, x: torch.Tensor, dims: AttnDims, *,
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["gate"]) * (x @ p["up"])
     return h @ p["down"]
+
+
+def _chunk_loss(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    # the matmul stays in the activations' dtype and the upcast comes after
+    # it, so the head's cotangent and its sum over chunks stay bf16, as in
+    # the JAX package (its f32 (d, V) gradient was gigabytes)
+    logits = (xc @ head).float()                       # (B, chunk, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    # gathering the gold logit is the JAX package's one-hot contraction
+    gold = logits.gather(-1, lc[..., None]).squeeze(-1)
+    mf = mc.float()
+    return ((lse - gold) * mf).sum(), mf.sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
+                    mask: Optional[torch.Tensor] = None,
+                    chunk: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materializing the full (B, S, V) logits.
+
+    Walks the sequence in chunks; each chunk's logits are recomputed in the
+    backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint``), bounding live logits to (B, chunk, V).  Returns
+    (sum_loss, sum_count) in f32, summed over the chunks in order; the
+    caller normalizes."""
+    B, S, d = x.shape
+    if chunk is None:
+        chunk = int(os.environ.get("REPRO_CE_CHUNK", "512"))  # memory knob
+    chunk = min(chunk, S)
+    m = mask if mask is not None else torch.ones((B, S), dtype=torch.bool,
+                                                 device=x.device)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        m = F.pad(m, (0, pad))
+    sum_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        l, c = checkpoint(_chunk_loss, x[:, sl], head, labels[:, sl], m[:, sl],
+                          use_reentrant=False)
+        sum_loss = sum_loss + l
+        count = count + c
+    return sum_loss, count

@@ -9,10 +9,12 @@ tree (as numpy arrays) into the port's, keeping its names and its stacked
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.tree import tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -59,17 +61,6 @@ def init_one(pd: PD, gen: torch.Generator, device) -> torch.Tensor:
     return x.mul_(std).to(dt)
 
 
-def is_pd_leaf(x) -> bool:
-    return isinstance(x, PD)
-
-
-def tree_map(fn: Callable, tree, *, is_leaf: Callable = is_pd_leaf):
-    """Map `fn` over the leaves of a nested dict, in sorted-key order."""
-    if isinstance(tree, dict) and not is_leaf(tree):
-        return {k: tree_map(fn, tree[k], is_leaf=is_leaf) for k in sorted(tree)}
-    return fn(tree)
-
-
 def tree_init(defs, seed: int = 0, *, device="cuda"):
     """Initialize a full param tree from PDs: one `torch.Generator` seeded
     with `seed` on `device`, drawn leaf by leaf in sorted-key order.  The
@@ -97,5 +88,51 @@ def params_from_jax(tree_of_numpy, device="cuda", dtype=None):
     ``np.asarray``, as the port's tree: same names, same stacked
     ``(layers, ...)`` layout, optionally cast to `dtype`."""
     device = torch.device(device)
-    return tree_map(lambda a: _to_tensor(a, device, dtype), tree_of_numpy,
-                    is_leaf=lambda x: not isinstance(x, dict))
+    return tree_map(lambda a: _to_tensor(a, device, dtype), tree_of_numpy)
+
+
+def state_from_jax(state_of_numpy, device="cuda") -> dict:
+    """The JAX package's train state ``{"params", "opt": {"m", "v", "step"}}``,
+    its leaves converted with ``np.asarray``, as the port's: the parameters
+    and moments as by :func:`params_from_jax` (dtypes kept), and ``step`` as
+    a 0-d int32 tensor."""
+    opt = state_of_numpy["opt"]
+    return {"params": params_from_jax(state_of_numpy["params"], device),
+            "opt": {"m": params_from_jax(opt["m"], device),
+                    "v": params_from_jax(opt["v"], device),
+                    "step": torch.as_tensor(np.array(opt["step"]),
+                                            dtype=torch.int32,
+                                            device=torch.device(device))}}
+
+
+# logical axes that may carry tensor parallelism, and those eligible to carry
+# the FSDP ("data") sharding dim: the JAX package's sets
+TP_LOGICAL = {"vocab", "heads", "kv_heads", "ff", "experts", "d_inner", "ssm_heads"}
+FSDP_LOGICAL = {"d_model", "vocab", "ff", "d_inner", "heads", "kv_heads", "conv_ch", "source"}
+
+
+def fsdp_dim(pd: PD, fsdp_size: int, tp_size: int = 16) -> Optional[int]:
+    """The dim that carries the FSDP ("data") sharding of this param: the
+    last dim whose logical axis is FSDP-eligible, not TP-sharded and
+    divisible by `fsdp_size`; else the last TP dim divisible by
+    ``fsdp_size * tp_size``; else None.  With data = 1 it is the scatter dim
+    the cross-pod chunk planner cuts each gradient along."""
+    cand = [i for i in range(len(pd.shape))
+            if pd.axes[i] in FSDP_LOGICAL
+            and pd.axes[i] not in TP_LOGICAL
+            and pd.shape[i] % fsdp_size == 0]
+    if not cand:
+        cand = [i for i in range(len(pd.shape))
+                if pd.axes[i] in TP_LOGICAL
+                and pd.shape[i] % (fsdp_size * max(tp_size, 1)) == 0]
+        return cand[-1] if cand else None
+    return cand[-1]
+
+
+def tree_fsdp_dims(defs, fsdp_size: int, tp_size: int = 16):
+    """Per-param :func:`fsdp_dim` (or None), in the tree's layout."""
+    return tree_map(lambda pd: fsdp_dim(pd, fsdp_size, tp_size), defs)
+
+
+def leaf_bytes_pd(pd: PD) -> int:
+    return int(np.prod(pd.shape)) * torch_dtype(pd.dtype).itemsize

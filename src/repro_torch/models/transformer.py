@@ -1,14 +1,17 @@
-"""Decoder-only transformer LM, dense family, forward only (prefill and
-cached decode).
+"""Decoder-only transformer LM, dense family: the training forward and loss
+(differentiable), prefill and cached decode.
 
 Parameters keep the JAX package's stacked ``(layers, ...)`` layout and names;
 the layers are a Python loop over that stack (the JAX package scans it).
+With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+(recomputed in the backward, the JAX package's ``jax.checkpoint``).
 The MoE, vision-stub and encoder-decoder branches of the JAX model are not
 ported yet and raise :class:`NotImplementedError` naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -26,6 +29,18 @@ def layer_params(blocks: dict, i: int) -> dict:
     """Layer `i`'s parameters: views into the stacked tensors."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def unstack_layers(blocks: dict, n: int) -> list[dict]:
+    """Every layer's parameters at once, by ``torch.unbind`` of each stacked
+    tensor: in the backward the per-layer gradients are stacked once, not
+    added into a zero tensor of the whole stack per layer."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in blocks.items():
+        parts = unstack_layers(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
 
 
 class Transformer:
@@ -107,6 +122,47 @@ class Transformer:
             raise _queued(f"the vision-stub inputs of {c.name!r}")
         if not c.rope_theta:
             raise _queued(f"the sinusoidal positions of {c.name!r}")
+
+    # ------------------------------------------------------------------
+    # training forward and loss
+    # ------------------------------------------------------------------
+
+    def _block(self, lp: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        h = L.rms_norm(x, lp["ln1"], c.norm_eps)
+        x = x + L.attention(lp["attn"], h, self.dims, positions=positions)
+        h = L.rms_norm(x, lp["ln2"], c.norm_eps)
+        return x + L.swiglu(lp["ffn"], h)
+
+    def hidden_states(self, params: dict, batch: dict):
+        """Full-sequence forward to the final-norm hidden states.  Returns
+        (x, aux_loss, n_prefix), as the JAX package's does (aux 0 and no
+        prefix in the dense family)."""
+        c = self.cfg
+        self._check_dense()
+        tokens = batch["tokens"]
+        x = params["embed"][tokens]
+        positions = torch.arange(x.shape[1], device=x.device)
+        for lp in unstack_layers(params["blocks"], c.num_layers):
+            if c.remat:
+                x = checkpoint(self._block, lp, x, positions, use_reentrant=False)
+            else:
+                x = self._block(lp, x, positions)
+        x = L.rms_norm(x, params["ln_f"], c.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux, 0
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch["tokens"]: (B, S+1), teacher forcing.  Returns
+        (mean_local_loss, metrics)."""
+        tokens = batch["tokens"]
+        inputs = {**batch, "tokens": tokens[:, :-1]}
+        labels = tokens[:, 1:]
+        x, aux, _ = self.hidden_states(params, inputs)
+        sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels)
+        loss = sum_loss / torch.clamp(count, min=1.0)
+        return loss, {"ce_loss": loss, "aux_loss": aux, "tokens": count}
 
     def _head(self, params: dict) -> torch.Tensor:
         if self.cfg.tie_embeddings:

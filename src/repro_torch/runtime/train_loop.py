@@ -1,0 +1,191 @@
+"""Trainer: the training loop of the port.
+
+The port of the loop of the JAX package's ``runtime/train_loop.py``: fresh
+initialization, the step loop with its history (loss, lr, grad_norm, step
+seconds), the straggler detector and the path telemetry.  Checkpointing and
+fault recovery, online autotuning, routes, chaos, elastic membership and
+local SGD are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP item.
+
+With ``check_replicas`` the loop holds the data-parallel invariant after
+every step: every pod rank's parameters must be bit-identical, compared by a
+checksum of their bits across the pod group.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.collectives import queued
+from repro_torch.core.telemetry import get_telemetry
+from repro_torch.core.tree import flatten
+from repro_torch.runtime.step import StepBundle, build_train_step
+
+
+@dataclass
+class StragglerDetector:
+    """EWMA + z-score step-time anomaly detector."""
+    alpha: float = 0.1
+    z_thresh: float = 3.0
+    mean: float = 0.0
+    var: float = 0.0
+    n: int = 0
+    flagged: list = field(default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        if self.n >= 5:
+            sd = max(self.var ** 0.5, 1e-9)
+            z = (dt - self.mean) / sd
+            is_straggler = z > self.z_thresh
+        else:
+            is_straggler = False
+        d = dt - self.mean
+        self.mean += self.alpha * d
+        self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
+        self.n += 1
+        if is_straggler:
+            self.flagged.append((step, dt))
+        return is_straggler
+
+
+class ReplicaDivergence(RuntimeError):
+    """Pod ranks hold different parameters after a step."""
+
+
+# odd multiplier of the element weights; products wrap mod 2^64
+_MIX = 0x5851F42D4C957F2D
+_SLICE = 1 << 24
+
+
+def replica_checksum(params) -> int:
+    """A checksum of the parameters' bits: each leaf's elements read as
+    integers of their width and summed in int64, element i weighted by
+    ``i * _MIX + 1`` (wrapping mod 2^64), then mixed with the leaf's index.
+    The odd weights make the sum depend on where each value sits: two
+    elements swapped, or +k and -k in two elements, change it.  Equal
+    parameters give equal checksums on every rank; the sum runs on the
+    leaf's device, a slice of elements at a time."""
+    total = 0
+    for i, p in enumerate(flatten(params)[0]):
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[p.element_size()]
+        flat = p.detach().contiguous().view(bits).reshape(-1)
+        s = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for a in range(0, flat.numel(), _SLICE):
+            x = flat[a:a + _SLICE].to(torch.int64)
+            w = torch.arange(a, a + x.numel(), dtype=torch.int64,
+                             device=flat.device).mul_(_MIX).add_(1)
+            s += (x * w).sum()
+        total = (total * 1_000_003 + int(s) + i) % (1 << 61)
+    return total
+
+
+class Trainer:
+    def __init__(self, rc: RunConfig, mesh, *, ckpt_dir: Optional[str] = None,
+                 fault_hook: Optional[Callable[[int], None]] = None,
+                 autotune_every: int = 0, route=None, chaos=None,
+                 membership=None, check_replicas: bool = False):
+        if ckpt_dir is not None:
+            raise queued("checkpoints (ckpt_dir)", "facade, relays, files, checkpoints")
+        if fault_hook is not None:
+            raise queued("fault_hook recovery (restore from a checkpoint)",
+                         "facade, relays, files, checkpoints")
+        if autotune_every:
+            raise queued("online autotuning in the Trainer (autotune_every)",
+                         "online autotuning in the Trainer")
+        if route is not None:
+            raise queued("a multi-hop route", "facade, relays, files, checkpoints")
+        if chaos is not None or membership is not None:
+            raise queued("chaos and elastic membership",
+                         "topology, chaos and elasticity")
+        if rc.comm.local_steps > 1:
+            raise queued(f"local SGD (local_steps = {rc.comm.local_steps})",
+                         "topology, chaos and elasticity")
+        self.rc = rc
+        self.mesh = mesh
+        self.bundle: StepBundle = build_train_step(rc, mesh)
+        self.detector = StragglerDetector()
+        self.check_replicas = check_replicas
+        self.state = None
+        self.step = 0
+        self.history: list[dict] = []
+        # the first step pays the kernels' loading and the allocator's and
+        # cuBLAS's warm-up: it stays out of the straggler EWMA and telemetry
+        self._fresh = True
+
+    def init_or_restore(self, seed: int = 0) -> str:
+        self.state = self.bundle.init_state(seed)
+        return "initialized"
+
+    def _place_batch(self, batch_np) -> dict:
+        """This pod's rows of the global batch: rows [r*gb/P, (r+1)*gb/P)
+        for pod r, as the reference's ``P(dp)`` sharding gives them."""
+        toks = batch_np["tokens"] if isinstance(batch_np, dict) else batch_np
+        P, r = self.mesh.pod, self.mesh.pod_index
+        if toks.shape[0] % P:
+            raise ValueError(f"global batch {toks.shape[0]} does not split over "
+                             f"{P} pods")
+        lb = toks.shape[0] // P
+        rows = np.ascontiguousarray(toks[r * lb:(r + 1) * lb])
+        return {"tokens": torch.as_tensor(rows, dtype=torch.int64,
+                                          device=self.bundle.device)}
+
+    def _replicas_agree(self) -> int:
+        c = replica_checksum(self.state["params"])
+        if self.mesh.pod_group is not None:
+            mine = torch.tensor([c], dtype=torch.int64)
+            every = [torch.zeros(1, dtype=torch.int64) for _ in range(self.mesh.pod)]
+            dist.all_gather(every, mine, group=self.mesh.pod_group)
+            seen = [int(t) for t in every]
+            if len(set(seen)) != 1:
+                raise ReplicaDivergence(f"step {self.step}: pod ranks' parameter "
+                                        f"checksums differ: {seen}")
+        return c
+
+    def run(self, data_iter, num_steps: int, *, log_every: int = 10,
+            log: Callable[[str], None] = print) -> list[dict]:
+        if self.state is None:
+            raise RuntimeError("Trainer.state is unset; call init_or_restore() "
+                               "before run()")
+        target = self.step + num_steps
+        dev = self.bundle.device
+        while self.step < target:
+            batch = self._place_batch(next(data_iter))
+            t0 = time.perf_counter()
+            self.state, metrics = self.bundle.fn(self.state, batch)
+            loss = float(metrics["loss"])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            if self._fresh:
+                self._fresh = False
+                straggler = False
+            else:
+                straggler = self.detector.observe(self.step, dt)
+                if self.rc.comm.mode != "flat":   # flat: path carries nothing
+                    get_telemetry().record(self.bundle.path.key, dt, step=self.step)
+            rec = {"step": self.step, "loss": loss,
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "lr": float(metrics["lr"]), "time_s": dt,
+                   "straggler": straggler, "sync_s": metrics["sync_s"],
+                   "wire_bytes": metrics["wire_bytes"],
+                   "sent_bytes": metrics["sent_bytes"],
+                   "payload_bytes": sum(c["payload_bytes"] for c in metrics["chunks"]),
+                   "n_chunks": len(metrics["chunks"])}
+            if self.check_replicas:
+                rec["checksum"] = self._replicas_agree()
+            self.history.append(rec)
+            if log_every and self.step % log_every == 0:
+                log(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
+                    f"gnorm {rec['grad_norm']:.3f} {dt*1e3:.0f}ms"
+                    + (" [straggler]" if straggler else ""))
+            self.step += 1
+        return self.history
+
+    def close(self) -> None:
+        """Nothing to flush: no checkpoint manager is ported yet."""

@@ -8,7 +8,10 @@ also runs on a machine without the JAX package:
 
 Tolerances: quant and dequant exact; rmsnorm one bf16 ulp; attention 2e-2
 (bf16 output, P rounded to bf16 before P.V, sums over keys in another
-order).
+order); the attention backward, each gradient elementwise within 2 % of its
+largest entry plus 2 % of the entry (bf16 output, P and dS rounded to bf16
+before the products that take them, delta from the bf16 output, sums over
+keys and queries in another order than autograd's).
 """
 from __future__ import annotations
 
@@ -46,7 +49,10 @@ def _rnd(dev, *shape, dtype=torch.bfloat16, scale=1.0, seed=0):
     (1, 150, 300, 4, 1, 32, 70, 1.0),                   # head dim 32, suffix + window
     (3, 96, 96, 48, 16, 64, None, 1.0),                 # B*H = 144 above 132 SMs
     (1, 256, 256, 8, 2, 128, None, 30.0),               # huge scores: no NaN or Inf
-    (1, 100, 30, 4, 2, 64, None, 1.0)])                 # Sq > Sk: 70 rows see no key
+    (1, 100, 30, 4, 2, 64, None, 1.0),                  # Sq > Sk: 70 rows see no key
+    (1, 200, 200, 8, 2, 120, None, 1.0),                # head dim 120 (h2o-danube-3-4b)
+    (1, 300, 300, 4, 1, 120, 100, 1.0),                 # head dim 120, window
+    (1, 40, 90, 4, 2, 120, None, 1.0)])                 # head dim 120, query suffix
 def test_flash_matches_plain(cuda, b, sq, sk, h, kh, d, window, amp):
     q = _rnd(cuda, b, sq, h, d, seed=1, scale=amp)
     k = _rnd(cuda, b, sk, kh, d, seed=2, scale=amp)
@@ -222,7 +228,81 @@ def test_dispatch_launches_the_kernels_and_counts(cuda):
     ops.flash_attention(q, q, q, impl="plain")          # not a launch
     ops.rmsnorm(x.cpu(), torch.ones(256))                # CPU: plain, not a launch
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"flash_attention": 1, "rmsnorm": 1,
-                                   "quant_int8": 1, "dequant_int8": 1}
+    assert ops.launch_counts() == {"flash_attention": 1, "flash_attention_bwd": 0,
+                                   "rmsnorm": 1, "quant_int8": 1,
+                                   "dequant_int8": 1}
     with pytest.raises(TypeError):
         fa.flash_attention_bshd(q.float(), q.float(), q.float())
+
+
+def _grads_plain(q, k, v, do, causal, window):
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    ref.flash_attention_ref(qs, ks, vs, causal=causal, window=window).backward(do)
+    return qs.grad, ks.grad, vs.grad
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal,window", [
+    (1, 128, 128, 4, 4, 32, True, None),                # group 1, head dim 32
+    (2, 97, 97, 6, 2, 64, True, None),                  # group 3, ragged tiles
+    (1, 200, 200, 6, 2, 120, True, None),               # head dim 120
+    (1, 130, 130, 3, 1, 128, True, 48),                 # group 3, window
+    (1, 256, 256, 4, 4, 64, True, 64),                  # group 1, window on tile edges
+    (1, 100, 30, 6, 2, 64, True, None),                 # Sq > Sk: 70 rows see no key
+    (1, 33, 80, 3, 1, 120, True, 16),                   # query suffix + window, D 120
+    (1, 77, 150, 2, 2, 128, True, None),                # query suffix, D 128
+    (1, 96, 96, 4, 2, 64, False, None),                 # not causal
+    (1, 1024, 1024, 16, 16, 64, True, None)])           # qwen1.5-0.5b's heads
+def test_flash_bwd_matches_plain(cuda, b, sq, sk, h, kh, d, causal, window):
+    q = _rnd(cuda, b, sq, h, d, seed=1)
+    k = _rnd(cuda, b, sk, kh, d, seed=2)
+    v = _rnd(cuda, b, sk, kh, d, seed=3)
+    # dO as the model hands it over: a non-contiguous view
+    do = _rnd(cuda, b, h, sq, d, seed=4).transpose(1, 2)
+    o, lse = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    got = fa.flash_attention_bwd_bshd(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    want = _grads_plain(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        assert bool(torch.isfinite(g).all()), name
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2 * top,
+                                   rtol=2e-2, msg=name)
+    if sq > sk:                      # queries with no valid key: zero gradient
+        assert not got[0][:, :sq - sk].any()
+
+
+def test_flash_function_counts_the_backward_launch(cuda):
+    q = _rnd(cuda, 1, 64, 4, 64, seed=5).requires_grad_(True)
+    k = _rnd(cuda, 1, 64, 2, 64, seed=6).requires_grad_(True)
+    v = _rnd(cuda, 1, 64, 2, 64, seed=7).requires_grad_(True)
+    ops.reset_launch_counts()
+    o = ops.flash_attention(q, k, v)
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    want = _grads_plain(q, k, v, (2 * o.detach().float()).to(torch.bfloat16), True, None)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2 * top, rtol=2e-2)
+    ops.reset_launch_counts()
+    with torch.no_grad():                # no gradient wanted: forward only
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+
+
+def test_rmsnorm_function_keeps_dtypes_on_the_card(cuda):
+    x = _rnd(cuda, 8, 1024, seed=8).requires_grad_(True)
+    w = _rnd(cuda, 1024, seed=9, dtype=torch.float32).requires_grad_(True)
+    ops.reset_launch_counts()
+    ops.rmsnorm(x, w).float().sum().backward()
+    assert ops.launch_counts()["rmsnorm"] == 1
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    dx, dw = ops.rmsnorm_bwd(x.detach().cpu(), w.detach().cpu(),
+                             torch.ones(8, 1024, dtype=torch.bfloat16), 1e-5)
+    # the same f32 arithmetic, reduced in another order on the card
+    torch.testing.assert_close(x.grad.cpu().float(), dx.float(), atol=1e-3, rtol=2 ** -7)
+    torch.testing.assert_close(w.grad.cpu(), dw, atol=1e-3, rtol=1e-5)

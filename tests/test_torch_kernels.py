@@ -357,5 +357,6 @@ def test_auto_on_cpu_is_the_plain_version_and_counts_no_launch():
     x = q.reshape(8, 64)
     torch.testing.assert_close(ops.rmsnorm(x, torch.ones(64)),
                                ref.rmsnorm_ref(x, torch.ones(64)), rtol=0, atol=0)
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
-                                   "quant_int8": 0, "dequant_int8": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "rmsnorm": 0, "quant_int8": 0,
+                                   "dequant_int8": 0}
