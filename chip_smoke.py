@@ -15,8 +15,11 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             h2o-danube-3-4b's head dim 120; the flash backward at the
             llama3.2-3b, qwen1.5-0.5b and danube shapes, causal and
             windowed), with times (CUDA events), the bound and a PyTorch
-            library call as a yardstick where one exists, and the launch
-            floor (an empty kernel, timed the same way);
+            library call as a yardstick where one exists (SDPA; with a
+            dense boolean mask for a window), and the launch floor (an
+            empty kernel, timed the same way); the backward's device time
+            split into its delta, dK/dV and dQ kernels (torch.profiler),
+            with each one's registers and shared memory;
 4. small    the port on the card against the port on the CPU (plain
             versions) at smoke size: prefill and decode logits, and one
             training step's loss and gradients;
@@ -278,14 +281,21 @@ def phase_kernels(torch, dev) -> dict:
     # Tolerance: 2e-2 (bf16 output, P rounded to bf16, sums in another order).
     from torch.nn.attention.bias import causal_lower_right
 
-    def sdpa(q, k, v):
-        """Causal SDPA with queries aligned to the end of the keys."""
+    def sdpa(q, k, v, window=None):
+        """Causal SDPA with queries aligned to the end of the keys; a window
+        as a dense boolean mask, with enable_gqa only where the heads differ
+        (SDPA's memory-efficient backend takes a mask but no GQA)."""
         Sq, Sk = q.shape[1], k.shape[1]
-        mask = dict(is_causal=True) if Sq == Sk else dict(
-            attn_mask=causal_lower_right(Sq, Sk))
+        if window is not None:
+            mask = dict(attn_mask=window_mask(torch, dev, Sq, Sk, window),
+                        enable_gqa=q.shape[2] != k.shape[2])
+        elif Sq == Sk:
+            mask = dict(is_causal=True, enable_gqa=True)
+        else:
+            mask = dict(attn_mask=causal_lower_right(Sq, Sk), enable_gqa=True)
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            enable_gqa=True, **mask).transpose(1, 2)
+            **mask).transpose(1, 2)
 
     cases = [(1, 1024, 1024, 24, 8, 128, None), (1, 777, 777, 24, 8, 128, None),
              (1, 128, 1024, 24, 8, 128, None), (2, 512, 512, 8, 2, 64, 256),
@@ -311,12 +321,10 @@ def phase_kernels(torch, dev) -> dict:
              "ms": cuda_ms(torch, lambda i: fa.flash_attention_bshd(
                  *qkv[i], causal=True, window=window), k, 50),
              "plain_ms": cuda_ms(torch, lambda i: ref.flash_attention_ref(
-                 *qkv[i], causal=True, window=window), k, 5),
-             "library_ms": None}
-        if window is None:     # SDPA has no sliding window without a dense mask
-            e["library_ms"] = cuda_ms(torch, lambda i: sdpa(*qkv[i]), k, 50)
-            e["library_max_abs_err"] = float(
-                (sdpa(*qkv[0]).float() - want.float()).abs().max())
+                 *qkv[i], causal=True, window=window), k, 5)}
+        e["library_ms"] = cuda_ms(torch, lambda i: sdpa(*qkv[i], window), k, 50)
+        e["library_max_abs_err"] = float(
+            (sdpa(*qkv[0], window).float() - want.float()).abs().max())
         e["bound_ms"], e["bound_by"] = bound(nbytes, 4 * D * H * B * pairs, PEAK_BF16)
         rows.setdefault("flash_attention", []).append(e)
     rows["flash_attention_bwd"] = phase_kernels_flash_bwd(torch, dev, rnd)
@@ -324,14 +332,20 @@ def phase_kernels(torch, dev) -> dict:
     return rows
 
 
-def causal_pairs(torch, dev, Sq: int, Sk: int, window) -> int:
-    """(query, key) pairs a causal (windowed) attention computes."""
+def window_mask(torch, dev, Sq: int, Sk: int, window):
+    """(Sq, Sk) bool, True where a query (aligned to the end of the keys)
+    sees a key: causal, and within `window` keys when it is not None."""
     qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
     kpos = torch.arange(Sk, device=dev)[None, :]
     valid = kpos <= qpos
     if window is not None:
         valid &= kpos > qpos - window
-    return int(valid.sum())
+    return valid
+
+
+def causal_pairs(torch, dev, Sq: int, Sk: int, window) -> int:
+    """(query, key) pairs a causal (windowed) attention computes."""
+    return int(window_mask(torch, dev, Sq, Sk, window).sum())
 
 
 def phase_kernels_flash_bwd(torch, dev, rnd) -> list:
@@ -345,8 +359,9 @@ def phase_kernels_flash_bwd(torch, dev, rnd) -> list:
     the forward's causal operations times 2.5 (five products against two)
     at the bf16 peak, against the bytes of q, k, v, o, dO, lse read once and
     dq, dk, dv written once.  Library: SDPA forward + backward minus SDPA
-    forward, at the same shape (causal only: SDPA has no sliding window
-    without a dense mask)."""
+    forward, at the same shape; a window as a dense boolean mask.  Parts:
+    each of the backward's three kernels' device time from torch.profiler
+    over back-to-back calls."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     F = torch.nn.functional
@@ -391,28 +406,14 @@ def phase_kernels_flash_bwd(torch, dev, rnd) -> list:
              "ms": cuda_ms(torch, lambda i: fa.flash_attention_bwd_bshd(
                  *sets[i], causal=True, window=window), k_sets, 20),
              "plain_ms": cuda_ms(torch, lambda i: plain_grads(
-                 *[sets[i][j] for j in (0, 1, 2, 5)], window), k_sets, 3),
-             "library_ms": None}
-        if window is None:
-            lib = []
-            for q, k, v, _, _, do in sets:
-                qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
-                              for t in (q, k, v))
-                lib.append((qg, kg, vg, do.transpose(1, 2)))
-
-            def sdpa_f(i):
-                qg, kg, vg, _ = lib[i]
-                return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                                      enable_gqa=True)
-
-            def sdpa_fb(i):
-                torch.autograd.grad(sdpa_f(i), lib[i][:3], lib[i][3])
-
-            t_fb = cuda_ms(torch, sdpa_fb, k_sets, 20)
-            t_f = cuda_ms(torch, sdpa_f, k_sets, 20)
-            e["library_ms"] = t_fb - t_f
-            e["library_fwd_bwd_ms"], e["library_fwd_ms"] = t_fb, t_f
-            del lib
+                 *[sets[i][j] for j in (0, 1, 2, 5)], window), k_sets, 3)}
+        mask = None if window is None else window_mask(torch, dev, S, S, window)
+        t_fb, t_f = sdpa_bwd_ms(torch, F, sets, k_sets, mask)
+        e["library_ms"] = t_fb - t_f
+        e["library_fwd_bwd_ms"], e["library_fwd_ms"] = t_fb, t_f
+        e["parts_ms"] = bwd_parts_ms(torch, lambda i: fa.flash_attention_bwd_bshd(
+            *sets[i], causal=True, window=window), k_sets, 20)
+        e["resources"] = fa.bwd_resources(D)
         e["bound_ms"], e["bound_by"] = bound(nbytes, 2.5 * 4 * D * H * B * pairs,
                                              PEAK_BF16)
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
@@ -420,6 +421,54 @@ def phase_kernels_flash_bwd(torch, dev, rnd) -> list:
         del sets
         torch.cuda.empty_cache()
     return out
+
+
+def sdpa_bwd_ms(torch, F, sets, n_sets: int, mask):
+    """(forward + backward ms, forward ms) of SDPA on the inputs of `sets`:
+    causal, or with the dense boolean `mask` (enable_gqa only where the
+    heads differ, as in `phase_kernels`' forward)."""
+    lib = []
+    for q, k, v, _, _, do in sets:
+        qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        lib.append((qg, kg, vg, do.transpose(1, 2)))
+    kw = dict(is_causal=True, enable_gqa=True) if mask is None else dict(
+        attn_mask=mask, enable_gqa=sets[0][0].shape[2] != sets[0][1].shape[2])
+
+    def fwd(i):
+        qg, kg, vg, _ = lib[i]
+        return F.scaled_dot_product_attention(qg, kg, vg, **kw)
+
+    def fwd_bwd(i):
+        torch.autograd.grad(fwd(i), lib[i][:3], lib[i][3])
+
+    return cuda_ms(torch, fwd_bwd, n_sets, 20), cuda_ms(torch, fwd, n_sets, 20)
+
+
+BWD_KERNEL = re.compile(r"flash_bwd_(delta|dkdv|dq)_kernel")
+
+
+def bwd_parts_ms(torch, fn, n_sets: int, iters: int) -> dict:
+    """Device ms per call of each of the flash backward's kernels (delta,
+    dkdv, dq) over `iters` back-to-back calls of fn(i) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i % n_sets)
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        m = BWD_KERNEL.search(e.key)
+        if m is None:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        parts[m.group(1)] = parts.get(m.group(1), 0.0) + us / 1e3 / iters
+    check(set(parts) == {"delta", "dkdv", "dq"},
+          f"the profiler saw the backward's three kernels: {sorted(parts)}")
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -702,8 +751,8 @@ def _leaves(tree):
 def _bucket(name: str) -> str:
     if "flash_fwd_wgmma_kernel" in name:
         return "flash_attention (ours)"
-    if "flash_bwd_" in name:
-        return "flash_attention_bwd (ours)"
+    if (m := BWD_KERNEL.search(name)):
+        return f"flash_attention_bwd {m.group(1)} (ours)"
     if "rmsnorm_warp_kernel" in name or "rmsnorm_twopass_kernel" in name:
         return "rmsnorm (ours)"
     if re.search(r"quant_(warp|block|vec)_kernel", name):
@@ -879,7 +928,7 @@ def phase_train(torch, out_dir: str) -> dict:
         if r0["profile"] is not None:
             p = r0["profile"]
             buckets: dict = {}
-            for name, sec, cnt in p["top_device_ops"]:
+            for name, sec, cnt in p["device_ops"]:
                 b = buckets.setdefault(_bucket(name), [0.0, 0])
                 b[0] += 1e3 * sec
                 b[1] += cnt
@@ -888,9 +937,9 @@ def phase_train(torch, out_dir: str) -> dict:
                 "device_busy_ms": 1e3 * p["device_busy_s"],
                 "device_idle_share": p["device_idle_share"],
                 "device_launches": p["device_launches"],
-                "top_device_ops_by_bucket_ms": buckets,
+                "device_ops_by_bucket_ms": buckets,
                 "top_device_ops": [[n[:90], 1e3 * sec, cnt]
-                                   for n, sec, cnt in p["top_device_ops"]]}
+                                   for n, sec, cnt in p["device_ops"][:12]]}
         emit({"phase": "train", "codec": codec, **runs[codec]})
     return runs
 
@@ -1009,7 +1058,9 @@ def main() -> int:
                          "shape": main_row["shape"], "tolerance": tol,
                          "agrees_with_plain": True,   # a disagreement raised above
                          "checks": len(krows[name])
-                         + len(krows[name][0].get("other_blocks", []))})
+                         + len(krows[name][0].get("other_blocks", [])),
+                         **{k: main_row[k] for k in ("parts_ms", "resources")
+                            if k in main_row}})
         emit({"kernels": line})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(smi, flush=True)

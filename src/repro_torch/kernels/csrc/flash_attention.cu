@@ -73,64 +73,9 @@ constexpr int kBQ = 64;        // query rows per block: one wgmma M tile
 constexpr int kBK = 64;        // keys per shared-memory tile
 constexpr int kThreads = 128;  // one warpgroup
 
-// A (64, D) bf16 tile as the wgmma descriptors read it. D >= 64: 128-byte
-// swizzle, the row split into 64-column blocks of 64 rows x 128 bytes;
-// D = 32: 64-byte swizzle on 64-byte rows. The tile base is 1024-byte
-// aligned, so every swizzle atom (8 rows) is aligned to its size.
+// Q, K, V and O tiles of 64 rows in the swizzled layout of hopper.cuh
 template <int D>
-struct Tile {
-  static constexpr int kCols = D >= 64 ? 64 : 32;           // elements per stored row
-  static constexpr int kRowBytes = kCols * 2;
-  static constexpr uint64_t kSwizzle = D >= 64 ? 1 : 2;     // 128-byte : 64-byte
-  static constexpr int kElems = kBQ * D;
-  __device__ static __forceinline__ int off(int row, int chunk) {   // 16-byte chunk, in elements
-    if constexpr (D >= 64)
-      return (chunk >> 3) * (64 * 64) + row * 64 + (((chunk & 7) ^ (row & 7)) << 3);
-    else
-      return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
-  }
-  // K-major operand (Q as A, K as B): head-dim columns 16 ks .. 16 ks + 15.
-  // Leading offset unused; stride offset: the next 8 rows.
-  __device__ static __forceinline__ uint64_t kmajor(uint32_t base, int ks) {
-    return smem_desc(base + (ks * 16 / kCols) * (64 * kRowBytes) + (ks * 16 % kCols) * 2,
-                     16, 8 * kRowBytes, kSwizzle);
-  }
-  // MN-major operand (V as B): keys 16 kk .. 16 kk + 15. Leading offset: the
-  // next 64-column block; stride offset: the next 8 keys.
-  __device__ static __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
-    return smem_desc(base + kk * 16 * kRowBytes, 64 * kRowBytes, 8 * kRowBytes, kSwizzle);
-  }
-};
-
-// cp.async of ROWS rows of DR bf16 into a Tile of width D >= DR: global
-// rows row0 + r (row stride `ss` elements from `src`); rows at or past
-// `limit`, and the columns DR .. D - 1 of every row, are zero-filled (zero
-// columns leave Q K^T unchanged and give zero output columns, which the
-// store drops). Each thread walks one 16-byte column with a running
-// pointer, so the unrolled loop keeps one address live, not one per row.
-template <int D, int DR, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t ss, int row0, int limit, int tid) {
-  constexpr int CH = D / 8, RS = kThreads / CH;
-  static_assert(ROWS % RS == 0, "whole rows per pass");
-  const int c = tid % CH, r0 = tid / CH;
-  const bool col_ok = c < DR / 8;
-  const __nv_bfloat16* p = src + (int64_t)(row0 + r0) * ss + (col_ok ? c * 8 : 0);
-#pragma unroll
-  for (int i = 0; i < ROWS / RS; ++i) {
-    const int r = r0 + i * RS;
-    const bool ok = col_ok && row0 + r < limit;
-    cp_async16(smem_u32(dst + Tile<D>::off(r, c)), ok ? p : src, ok);
-    p += RS * ss;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_m64n128_tb(acc, a, db);
-  else if constexpr (D == 64) wgmma_rs_m64n64_tb(acc, a, db);
-  else wgmma_rs_m64n32_tb(acc, a, db);
-}
+using Tile = SwTile<D, 64>;
 
 template <int D, int DR>
 __global__ void __launch_bounds__(kThreads)
@@ -186,10 +131,10 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const __nv_bfloat16* vb = v + b * v_sb + kh * v_sh;
   auto load_kv = [&](int tile, int stage) {
     const int t0 = t_begin + tile * kBK;
-    load_tile<D, DR, kBK>(sK + stage * L::kElems, kb, k_ss, t0, Sk, tid);
-    load_tile<D, DR, kBK>(sV + stage * L::kElems, vb, v_ss, t0, Sk, tid);
+    load_tile<D, DR, kBK, kThreads>(sK + stage * L::kElems, kb, k_ss, t0, Sk, tid);
+    load_tile<D, DR, kBK, kThreads>(sV + stage * L::kElems, vb, v_ss, t0, Sk, tid);
   };
-  load_tile<D, DR, kBQ>(sQ, qb, q_ss, q0, Sq, tid);   // Q and tile 0: one group
+  load_tile<D, DR, kBQ, kThreads>(sQ, qb, q_ss, q0, Sq, tid);   // Q and tile 0: one group
   load_kv(0, 0);
   cp_async_commit();
 
@@ -278,7 +223,8 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_pv<D>(&acc[0][0], pa[kk], L::mnmajor(v_base, kk));
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_tb_n<D>(&acc[0][0], pa[kk], L::mnmajor(v_base, kk));
     wgmma_commit();
     wgmma_wait_all();
     __syncthreads();   // every warp is done with this stage before it is refilled

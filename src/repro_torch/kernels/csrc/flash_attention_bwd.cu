@@ -11,35 +11,75 @@
 // forward saved (exp2 domain: p = exp2(s * scale * log2(e) - lse)), never
 // stored. Three kernels on one stream:
 //
-// 1. delta: D_i = sum_d dO_id * O_id in f32, one warp per query row.
+// 1. delta: D_i = sum_d dO_id * O_id in f32, 8 lanes per query row.
 // 2. dK/dV: one block per (batch, KV head, 64-key tile). It loops over every
 //    query head of the GQA group and over the query tiles that can see its
 //    keys, and keeps dK and dV of its 64 keys in registers, so they are
 //    summed over the group with no atomics and the same bits on every run:
-//      S^T = K Q^T, P^T = exp2(S^T c - lse), dV += P^T dO,
-//      dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q.
+//      S^T = K Q^T, P^T = exp2(S^T c - lse), dP^T = V dO^T,
+//      dS^T = P^T (dP^T - D), dV += P^T dO, dK += dS^T Q.
 // 3. dQ: one block per (batch, query head, 64-query tile), looping over the
 //    key tiles the tile can see: S = Q K^T, dP = dO V^T, dS = P (dP - D),
 //    dQ += dS K.
-// dK and dQ are scaled by the softmax scale at the store.
+// dK and dQ are scaled by the softmax scale at the store. Every output
+// element is written once by one thread: the same inputs give the same bits.
 //
-// Bound on an H100: operations. Five products of 2 * D flops per valid
-// (query, key) pair (S and dP recomputed in both kernels, then dV, dK and
-// dQ) on the bf16 tensor cores, 2.5 times the forward's two. This first
-// version is simple: 4 warps per block, each owning 16 rows, warp-level
-// `mma.sync` m16n8k16 (bf16 operands, f32 accumulators) with operands from
-// shared memory through `ldmatrix`, rows padded by 16 bytes against bank
-// conflicts, tiles loaded with 16-byte `cp.async` and no double buffering.
-// P and dS are rounded to bf16 before the products that take them, as the
-// forward rounds P. Head dim 120 runs the 128 tiles with zero columns.
-// `wgmma`, TMA and a pipelined ring are later work.
+// Bound on an H100: operations. The work needs five products of 2 * D flops
+// per visible (query, key) pair (S, dP, dV, dK, dQ) on the bf16 tensor cores
+// (989 TFLOP/s dense): 85.9 GFLOP, 0.087 ms, at qwen1.5-0.5b's training
+// shape (B1 S4096 H16/KH16 D64, causal). This design runs seven, as the dQ
+// kernel recomputes S and dP. The design, for Hopper:
 //
-// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8): dK/dV 238 registers per
-// thread at D = 128 (32 queries a step), 177 at D = 64, 148 at D = 32; dQ
-// 166, 158, 126; no spills. Shared memory: 51 KiB (dK/dV) and 68 KiB (dQ)
-// at D = 128. On an H100 the three launches take about 10 % of the bound
-// at qwen1.5-0.5b's training shape (PERF.md): every product waits for its
-// operands' loads and for the other warps at each tile's barrier.
+// - Every product is a warpgroup MMA (`wgmma.mma_async`, sm_90a) issued by
+//   one warpgroup (128 threads) per block on 64 x 64 tiles, bf16 operands
+//   and f32 accumulators. S^T and dP^T (dK/dV kernel) and S and dP (dQ
+//   kernel) read both operands K-major from shared memory; dV, dK and dQ
+//   take P^T, dS^T and dS from registers (the accumulator fragments rounded
+//   to bf16, in the A operand's layout) and read dO, Q and K MN-major from
+//   the same tiles: nothing is transposed in memory. Every tile is stored in
+//   the swizzled layout its descriptors name (hopper.cuh `SwTile`).
+// - The tiles that stream (Q and dO with their lse and delta rows in the
+//   dK/dV kernel, over the group's heads and query tiles as one sequence;
+//   K and V in the dQ kernel) go through a two-stage ring in shared memory,
+//   filled by `cp.async`: the next tile's copy is issued before the current
+//   tile's products and lands while they run.
+// - S and dP are committed as two groups, so P is computed while dP is
+//   still on the tensor cores. Masks are applied only on tiles that cross
+//   the causal diagonal, the window's edge, Sq or Sk; tiles with no visible
+//   pair are never visited.
+// - Both grids run the heaviest causal tiles first (key tile 0 sees every
+//   query; the last query tile sees every key), so the last wave is short.
+// - P and dS are rounded to bf16 before the products that take them, as the
+//   forward rounds P. Head dim 120 runs the 128 tiles with zero columns.
+// - dQ is a separate kernel (seven products), not fused into the dK/dV
+//   kernel (five) with a deterministic reduction. Fused, each 64-key block
+//   would write an f32 dQ partial for every query it sees, to be summed in
+//   key order by a second pass: at qwen's shape 16 * 64 * 2048 * 64 * 4
+//   bytes = 0.54 GB written and read again, 0.32 ms at 3.35 TB/s, against
+//   the 0.035 ms the two recomputed products take at the bf16 peak. Adding
+//   the partials in place in key order would make each key block wait for
+//   the one before it on every query tile, which serialises the causal
+//   grid. FlashAttention-2 and -3 fuse with f32 atomics, whose order, and
+//   so whose bits, vary from run to run.
+//
+// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8; no spills): registers per
+// thread dK/dV 232 / 168 / 130 and dQ 158 / 125 / 120 at D 128 / 64 / 32,
+// delta 32. Shared memory per block: dK/dV 100,352 / 51,200 / 26,624 bytes,
+// dQ 99,328 / 50,176 / 25,600. So at D = 64 three dK/dV blocks (registers)
+// and four dQ blocks share an SM; at D = 128 two of each.
+//
+// What is left between this design and the bound (tools/flash_bwd_variants.py
+// on an H100 at qwen's shape; numbers in PERF.md): a warpgroup's tile is a
+// chain (products, wait, exponentials, wait, products, wait) that takes
+// several times its tensor-core time, and the blocks that share an SM hide
+// only part of it (one block an SM is 1.7 times slower than three or
+// four). Dropping the products after P saves their time at the peak rate,
+// dropping the streamed loads 18 %, the exponentials 5 %. Variants that
+// were built and timed and were slower: each tile as two 32-wide halves,
+// 128-wide tiles (two blocks an SM), issuing dV before dS is made, and a
+// third ring stage that lets a tile's dV and dK run under the next tile's
+// S^T. A producer warp with TMA, two consumer warpgroups per block and
+// `setmaxnreg` are the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,94 +91,98 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kThreads = 128;   // 4 warps, 16 rows each
+constexpr int kThreads = 128;   // one warpgroup
 constexpr int kRows = 64;       // rows per block: keys (dK/dV) or queries (dQ)
-constexpr int kKeyTile = 64;    // keys per inner step of the dQ kernel
-
-// queries per inner step of the dK/dV kernel: at D = 128 the dK and dV
-// accumulators take 128 registers a thread, so the score tiles stay small
-template <int D>
-struct BwdTiles {
-  static constexpr int kQ = D >= 128 ? 32 : 64;
-};
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Shared-memory address of the lane's row for an ldmatrix.x4 that reads a
-// 16 x 16 block at (r0, c0) of a row-major tile with row stride S elements:
-// as an A fragment (non-transposed), or as the B fragments of two n8 tiles
-// of a [k][n] tile (transposed).
-template <int S>
-__device__ __forceinline__ uint32_t frag_a(const __nv_bfloat16* t, int r0, int c0, int lane) {
-  return smem_u32(t + (r0 + (lane & 15)) * S + c0 + (lane >> 4) * 8);
-}
-// ... the B fragments of two n8 tiles (n0, n0 + 8) over k0 .. k0 + 15 of an
-// [n][k] tile (non-transposed)
-template <int S>
-__device__ __forceinline__ uint32_t frag_b_nk(const __nv_bfloat16* t, int n0, int k0, int lane) {
-  return smem_u32(t + (n0 + (lane & 7) + (lane >> 4) * 8) * S + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// cp.async of ROWS rows of DR bf16 into a tile of width D (row stride D + 8
-// elements): global rows row0 + r, rows at or past `limit` and columns DR ..
-// D - 1 zero-filled.
-template <int D, int DR, int ROWS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t ss, int row0, int limit, int tid) {
-  constexpr int CH = D / 8, S = D + 8;
-#pragma unroll 4
-  for (int idx = tid; idx < ROWS * CH; idx += kThreads) {
-    const int r = idx / CH, c = idx - r * CH;
-    const bool ok = c < DR / 8 && row0 + r < limit;
-    const __nv_bfloat16* p = ok ? src + (int64_t)(row0 + r) * ss + c * 8 : src;
-    cp_async16(smem_u32(dst + r * S + c * 8), p, ok);
-  }
-}
+constexpr int kBQ = 64;         // queries per streamed tile of the dK/dV kernel
+constexpr int kBK = 64;         // keys per streamed tile of the dQ kernel
 
 __device__ __forceinline__ bool visible(int kp, int qp, int Sk, int causal, int window) {
   return kp < Sk && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
 }
 
+__device__ __forceinline__ __nv_bfloat16* align1024(unsigned char* p) {
+  return reinterpret_cast<__nv_bfloat16*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// Stores the warpgroup's 64 x D accumulator (times `mul`) as bf16 rows
+// row0 .. row0 + 63 (below `limit`, columns below DR) at `dst` (row stride
+// `ss`), staged through the tile `stage` (SwTile<D, 64> layout, free) so
+// that every global store is 16 bytes wide. Each warp stages and stores
+// its own 16 rows.
+template <int D, int DR>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
+                                           __nv_bfloat16* stage, __nv_bfloat16* dst,
+                                           int64_t ss, int row0, int limit, int warp,
+                                           int lane) {
+  using L = SwTile<D, kRows>;
+  constexpr int CH = D / 8, RS = 32 / CH;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<__nv_bfloat162*>(stage + L::off(warp * 16 + g + 8 * hr, dt) + t4 * 2) =
+          __floats2bfloat162_rn(acc[dt][2 * hr] * mul, acc[dt][2 * hr + 1] * mul);
+  __syncwarp();
+  const int c = lane % CH, r0 = lane / CH;
+  __nv_bfloat16* p = dst + (int64_t)(row0 + warp * 16 + r0) * ss + c * 8;
+#pragma unroll
+  for (int i = 0; i < 16 / RS; ++i) {
+    const int r = warp * 16 + r0 + i * RS;
+    if (row0 + r < limit && c < DR / 8)
+      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(stage + L::off(r, c));
+    p += RS * ss;
+  }
+}
+
+// Rounds a 64 x (16 KK) accumulator to bf16 A fragments, k16 step by step.
+template <int KK>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KK][4], const float (&s)[2 * KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// 1. delta = rowsum(dO * O), one warp per (b, h, query) row
+// 1. delta = rowsum(dO * O): 8 lanes per (b, h, query) row, 16-byte loads
 // ---------------------------------------------------------------------------
+constexpr int kDeltaLanes = 8;
+constexpr int kDeltaRows = kThreads / kDeltaLanes;   // rows per block
+
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                        float* __restrict__ delta, int H, int Sq, int D, int64_t rows,
                        int64_t o_sb, int64_t o_ss, int64_t o_sh,
                        int64_t d_sb, int64_t d_ss, int64_t d_sh) {
-  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int64_t bh = row / Sq;
-  const int s = (int)(row - bh * Sq);
-  const int b = (int)(bh / H), h = (int)(bh - (int64_t)b * H);
-  const __nv_bfloat16* op = o + b * o_sb + (int64_t)s * o_ss + h * o_sh;
-  const __nv_bfloat16* dp = dout + b * d_sb + (int64_t)s * d_ss + h * d_sh;
+  const int64_t row = (int64_t)blockIdx.x * kDeltaRows + threadIdx.x / kDeltaLanes;
+  const int sub = threadIdx.x % kDeltaLanes;
   float acc = 0.f;
-  for (int d = lane * 2; d < D; d += 64) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + d));
-    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dp + d));
-    acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
+  if (row < rows) {
+    const int64_t bh = row / Sq;
+    const int s = (int)(row - bh * Sq);
+    const int b = (int)(bh / H), h = (int)(bh - (int64_t)b * H);
+    const __nv_bfloat16* op = o + b * o_sb + (int64_t)s * o_ss + h * o_sh;
+    const __nv_bfloat16* dp = dout + b * d_sb + (int64_t)s * d_ss + h * d_sh;
+    for (int c = sub * 8; c < D; c += kDeltaLanes * 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(op + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(dp + c);
+      const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 u = __bfloat1622float2(xa[i]), w = __bfloat1622float2(ya[i]);
+        acc = fmaf(u.x, w.x, fmaf(u.y, w.y, acc));
+      }
+    }
   }
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) delta[row] = acc;
+  for (int m = kDeltaLanes / 2; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < rows && sub == 0) delta[row] = acc;
 }
 
 struct Args {
@@ -158,17 +202,18 @@ struct Args {
 template <int D, int DR>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const Args a) {
-  constexpr int S = D + 8;              // padded shared-memory row
-  constexpr int BQ = BwdTiles<D>::kQ;   // queries per inner step
-  constexpr int NQ = BQ / 8;            // n8 tiles of S^T over queries
-  constexpr int ND = D / 8;             // n8 tiles over the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kRows * S;
-  __nv_bfloat16* sQ = sV + kRows * S;
-  __nv_bfloat16* sO = sQ + BQ * S;      // dO tile
-  float* sL = reinterpret_cast<float*>(sO + BQ * S);
-  float* sD = sL + BQ;
+  using LK = SwTile<D, kRows>;   // K, V
+  using LQ = SwTile<D, kBQ>;     // Q, dO
+  constexpr int NQ = kBQ / 8;    // n8 column groups of S^T (queries)
+  constexpr int DT = D / 8;      // n8 column groups of dK, dV
+  constexpr int KS = D / 16;     // k16 steps of S^T and dP^T
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* sK = align1024(smem_raw);
+  __nv_bfloat16* sV = sK + LK::kElems;
+  __nv_bfloat16* sQ = sV + LK::kElems;          // [2][LQ]
+  __nv_bfloat16* sO = sQ + 2 * LQ::kElems;      // dO, [2][LQ]
+  float* sL = reinterpret_cast<float*>(sO + 2 * LQ::kElems);   // lse, [2][kBQ]
+  float* sD = sL + 2 * kBQ;                                     // delta, [2][kBQ]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -178,124 +223,129 @@ flash_bwd_dkdv_kernel(const Args a) {
   const int k0 = blockIdx.y * kRows;
   const int off = a.Sk - a.Sq;
 
-  const __nv_bfloat16* kb = a.k + b * a.st[1][0] + kh * a.st[1][2];
-  const __nv_bfloat16* vb = a.v + b * a.st[2][0] + kh * a.st[2][2];
-  load_rows<D, DR, kRows>(sK, kb, a.st[1][1], k0, a.Sk, tid);
-  load_rows<D, DR, kRows>(sV, vb, a.st[2][1], k0, a.Sk, tid);
+  // queries that may see a key of this tile: [q_lo, q_hi); the streamed
+  // items are (head j of the group, query tile from q_lo), head-major
+  const int k_last = min(k0 + kRows, a.Sk) - 1;
+  const int q_lo = max(a.causal ? k0 - off : 0, 0);
+  const int q_hi = min(a.window >= 0 ? k_last + a.window - off : a.Sq, a.Sq);
+  const int nq = q_hi > q_lo ? (q_hi - q_lo + kBQ - 1) / kBQ : 0;
+  const int n_items = group * nq;
+
+  auto load_item = [&](int i, int stage) {
+    const int j = i / nq, h = kh * group + j;
+    const int q0 = q_lo + (i - j * nq) * kBQ;
+    load_tile<D, DR, kBQ, kThreads>(sQ + stage * LQ::kElems,
+                                   a.q + b * a.st[0][0] + h * a.st[0][2], a.st[0][1], q0,
+                                   a.Sq, tid);
+    load_tile<D, DR, kBQ, kThreads>(sO + stage * LQ::kElems,
+                                   a.dout + b * a.st[4][0] + h * a.st[4][2], a.st[4][1], q0,
+                                   a.Sq, tid);
+    // rows past Sq read as 0; the masks drop them
+    const int64_t row = ((int64_t)b * a.H + h) * a.Sq + q0;
+    if (tid < 2 * kBQ) {
+      const int r = tid % kBQ;
+      const bool ok = q0 + r < a.Sq;
+      const float* src = tid < kBQ ? a.lse : a.delta;
+      float* dst = (tid < kBQ ? sL : sD) + stage * kBQ + r;
+      cp_async4(smem_u32(dst), ok ? src + row + r : src, ok);
+    }
+  };
+
+  if (n_items > 0) {
+    load_tile<D, DR, kRows, kThreads>(sK, a.k + b * a.st[1][0] + kh * a.st[1][2], a.st[1][1],
+                                      k0, a.Sk, tid);
+    load_tile<D, DR, kRows, kThreads>(sV, a.v + b * a.st[2][0] + kh * a.st[2][2], a.st[2][1],
+                                      k0, a.Sk, tid);
+    load_item(0, 0);   // K, V and the first item: one group
+  }
   cp_async_commit();
 
-  // queries that may see a key of this tile: [q_lo, q_hi)
-  const int k_last = min(k0 + kRows, a.Sk) - 1;
-  int q_lo = a.causal ? k0 - off : 0;
-  int q_hi = a.window >= 0 ? k_last + a.window - off : a.Sq;
-  q_lo = max(q_lo, 0);
-  q_hi = min(q_hi, a.Sq);
-  const int qt_begin = (q_lo / BQ) * BQ;
-
-  float dk[ND][4], dv[ND][4];
+  float dk[DT][4], dv[DT][4];
 #pragma unroll
-  for (int i = 0; i < ND; ++i)
+  for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
 
-  const int kp0 = k0 + warp * 16 + g;   // this lane's keys: kp0 and kp0 + 8
-  for (int j = 0; j < group && q_lo < q_hi; ++j) {
-    const int h = kh * group + j;
-    const int64_t bh = (int64_t)b * a.H + h;
-    const __nv_bfloat16* qb = a.q + b * a.st[0][0] + h * a.st[0][2];
-    const __nv_bfloat16* ob = a.dout + b * a.st[4][0] + h * a.st[4][2];
-    for (int q0 = qt_begin; q0 < q_hi; q0 += BQ) {
-      __syncthreads();   // every warp is done with the previous Q / dO tile
-      load_rows<D, DR, BQ>(sQ, qb, a.st[0][1], q0, a.Sq, tid);
-      load_rows<D, DR, BQ>(sO, ob, a.st[4][1], q0, a.Sq, tid);
-      cp_async_commit();
-      for (int i = tid; i < BQ; i += kThreads) {
-        const bool in = q0 + i < a.Sq;
-        sL[i] = in ? a.lse[bh * a.Sq + q0 + i] : INFINITY;
-        sD[i] = in ? a.delta[bh * a.Sq + q0 + i] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
+  // accumulator fragments of S^T: warp w holds keys k0 + 16 w + g and + 8,
+  // queries 8 nt + 2 t4 and + 1 of every n8 group nt
+  const int kp0 = k0 + warp * 16 + g;
+  const uint32_t k_base = smem_u32(sK), v_base = smem_u32(sV);
+  for (int it = 0; it < n_items; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_items) load_item(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // item `it` (and K, V) have landed
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t q_base = smem_u32(sQ + stage * LQ::kElems);
+    const uint32_t o_base = smem_u32(sO + stage * LQ::kElems);
+    const float* lse = sL + stage * kBQ;
+    const float* del = sD + stage * kBQ;
+    const int q0 = q_lo + (it % nq) * kBQ;
 
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp
-      float st[NQ][4], dpt[NQ][4];
+    // S^T = K Q^T and dP^T = V dO^T, 64 x kBQ each, as two groups
+    float st[NQ][4], dpt[NQ][4];
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < NQ; ++i)
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_m64n64(&st[0][0], LK::kmajor(k_base, ks), LQ::kmajor(q_base, ks), ks > 0);
+    wgmma_commit();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_m64n64(&dpt[0][0], LK::kmajor(v_base, ks), LQ::kmajor(o_base, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // S^T has landed; dP^T may still run
+
+    // P^T = exp2(S^T c - lse), masked on tiles that cross an edge
+    const bool edge = q0 + kBQ > a.Sq || k0 + kRows > a.Sk ||
+                      (a.causal && k0 + kRows - 1 > q0 + off) ||
+                      (a.window >= 0 && k0 <= q0 + kBQ - 1 + off - a.window);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t ak[4], av[4];
-        ldsm_x4(ak, frag_a<S>(sK, warp * 16, ks * 16, lane));
-        ldsm_x4(av, frag_a<S>(sV, warp * 16, ks * 16, lane));
+    for (int nt = 0; nt < NQ; ++nt) {
+      const float2 l = *reinterpret_cast<const float2*>(lse + nt * 8 + 2 * t4);
 #pragma unroll
-        for (int np = 0; np < NQ / 2; ++np) {
-          uint32_t bq[4], bo[4];
-          ldsm_x4(bq, frag_b_nk<S>(sQ, np * 16, ks * 16, lane));
-          ldsm_x4(bo, frag_b_nk<S>(sO, np * 16, ks * 16, lane));
-          mma16816(st[2 * np], ak, bq[0], bq[1]);
-          mma16816(st[2 * np + 1], ak, bq[2], bq[3]);
-          mma16816(dpt[2 * np], av, bo[0], bo[1]);
-          mma16816(dpt[2 * np + 1], av, bo[2], bo[3]);
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(st[nt][e], a.scale_log2, (e & 1) ? -l.y : -l.x));
+        if (edge) {
+          const int qi = q0 + nt * 8 + 2 * t4 + (e & 1);
+          if (!(qi < a.Sq && visible(kp0 + 8 * (e >> 1), qi + off, a.Sk, a.causal, a.window)))
+            p = 0.f;
         }
-      }
-      // P^T and dS^T; element e of tile nt: key kp0 + 8 (e >> 1), query
-      // q0 + 8 nt + 2 t4 + (e & 1)
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = nt * 8 + 2 * t4 + (e & 1);
-          const int kp = kp0 + 8 * (e >> 1);
-          const bool ok = q0 + qi < a.Sq && visible(kp, q0 + qi + off, a.Sk, a.causal, a.window);
-          const float p = ok ? fast_exp2(fmaf(st[nt][e], a.scale_log2, -sL[qi])) : 0.f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - sD[qi]);
-        }
-      // dV += P^T dO and dK += dS^T Q, over the BQ queries in k16 steps
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t ap[4], ad[4];
-        ap[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        ap[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        ap[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        ap[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        ad[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        ad[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        ad[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        ad[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < ND / 2; ++dp) {
-          uint32_t bo[4], bq[4];
-          ldsm_x4_t(bo, frag_a<S>(sO, kk * 16, dp * 16, lane));
-          ldsm_x4_t(bq, frag_a<S>(sQ, kk * 16, dp * 16, lane));
-          mma16816(dv[2 * dp], ap, bo[0], bo[1]);
-          mma16816(dv[2 * dp + 1], ap, bo[2], bo[3]);
-          mma16816(dk[2 * dp], ad, bq[0], bq[1]);
-          mma16816(dk[2 * dp + 1], ad, bq[2], bq[3]);
-        }
+        st[nt][e] = p;
       }
     }
-  }
-  cp_async_wait<0>();   // a block whose keys no query sees still drains its loads
-
-  // store: element e of tile dt is key kp0 + 8 (e >> 1), column 8 dt + 2 t4
-  __nv_bfloat16* dkb = a.dk + b * a.st[6][0] + kh * a.st[6][2];
-  __nv_bfloat16* dvb = a.dv + b * a.st[7][0] + kh * a.st[7][2];
+    wgmma_wait<0>();   // dP^T has landed
+    // dS^T = P^T (dP^T - delta)
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int kp = kp0 + 8 * hr;
-    if (kp >= a.Sk) continue;
+    for (int nt = 0; nt < NQ; ++nt) {
+      const float2 d = *reinterpret_cast<const float2*>(del + nt * 8 + 2 * t4);
 #pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-      const int c = dt * 8 + 2 * t4;
-      if (c >= DR) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)kp * a.st[6][1] + c) =
-          __floats2bfloat162_rn(dk[dt][2 * hr] * a.scale, dk[dt][2 * hr + 1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)kp * a.st[7][1] + c) =
-          __floats2bfloat162_rn(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
+      for (int e = 0; e < 4; ++e)
+        dpt[nt][e] = st[nt][e] * (dpt[nt][e] - ((e & 1) ? d.y : d.x));
     }
+    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+    pack_a<kBQ / 16>(pa, st);
+    pack_a<kBQ / 16>(da, dpt);
+
+    // dV += P^T dO and dK += dS^T Q over the kBQ queries, dO and Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_rs_tb_n<D>(&dv[0][0], pa[kk], LQ::mnmajor(o_base, kk));
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_rs_tb_n<D>(&dk[0][0], da[kk], LQ::mnmajor(q_base, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncthreads();   // every warp is done with this stage before it is refilled
   }
+  cp_async_wait<0>();
+  __syncthreads();     // K and V are free for staging
+
+  store_rows<D, DR>(dk, a.scale, sK, a.dk + b * a.st[6][0] + kh * a.st[6][2], a.st[6][1], k0,
+                    a.Sk, warp, lane);
+  store_rows<D, DR>(dv, 1.f, sV, a.dv + b * a.st[7][0] + kh * a.st[7][2], a.st[7][1], k0, a.Sk,
+                    warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -304,14 +354,15 @@ flash_bwd_dkdv_kernel(const Args a) {
 template <int D, int DR>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Args a) {
-  constexpr int S = D + 8;
-  constexpr int NK = kKeyTile / 8;     // n8 tiles of S over keys
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sO = sQ + kRows * S;   // dO tile
-  __nv_bfloat16* sK = sO + kRows * S;
-  __nv_bfloat16* sV = sK + kKeyTile * S;
+  using L = SwTile<D, kRows>;    // Q, dO, K, V
+  constexpr int NT = kBK / 8;    // n8 column groups of S (keys)
+  constexpr int DT = D / 8;      // n8 column groups of dQ
+  constexpr int KS = D / 16;
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* sQ = align1024(smem_raw);
+  __nv_bfloat16* sO = sQ + L::kElems;        // dO
+  __nv_bfloat16* sK = sO + L::kElems;        // [2][L]
+  __nv_bfloat16* sV = sK + 2 * L::kElems;    // [2][L]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -326,14 +377,27 @@ flash_bwd_dq_kernel(const Args a) {
   const int last_pos = min(q0 + kRows, a.Sq) - 1 + off;
   const int k_hi = a.causal ? min(a.Sk, last_pos + 1) : a.Sk;
   const int k_lo = a.window >= 0 ? max(0, first_pos - a.window + 1) : 0;
-  const int t_begin = (k_lo / kKeyTile) * kKeyTile;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
 
-  load_rows<D, DR, kRows>(sQ, a.q + b * a.st[0][0] + h * a.st[0][2], a.st[0][1], q0, a.Sq, tid);
-  load_rows<D, DR, kRows>(sO, a.dout + b * a.st[4][0] + h * a.st[4][2], a.st[4][1], q0, a.Sq,
-                          tid);
+  const __nv_bfloat16* kb = a.k + b * a.st[1][0] + kh * a.st[1][2];
+  const __nv_bfloat16* vb = a.v + b * a.st[2][0] + kh * a.st[2][2];
+  auto load_kv = [&](int tile, int stage) {
+    const int t0 = k_lo + tile * kBK;
+    load_tile<D, DR, kBK, kThreads>(sK + stage * L::kElems, kb, a.st[1][1], t0, a.Sk, tid);
+    load_tile<D, DR, kBK, kThreads>(sV + stage * L::kElems, vb, a.st[2][1], t0, a.Sk, tid);
+  };
+  if (n_tiles > 0) {   // Q, dO and the first K/V tile: one group
+    load_tile<D, DR, kRows, kThreads>(sQ, a.q + b * a.st[0][0] + h * a.st[0][2], a.st[0][1], q0,
+                                      a.Sq, tid);
+    load_tile<D, DR, kRows, kThreads>(sO, a.dout + b * a.st[4][0] + h * a.st[4][2], a.st[4][1],
+                                      q0, a.Sq, tid);
+    load_kv(0, 0);
+  }
   cp_async_commit();
 
-  const int qa = q0 + warp * 16 + g;    // this lane's rows: qa and qa + 8
+  // accumulator fragments: warp w holds rows q0 + 16 w + g and + 8, keys
+  // 8 nt + 2 t4 and + 1 of every n8 group nt
+  const int qa = q0 + warp * 16 + g;
   float lse_r[2], del_r[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -341,112 +405,117 @@ flash_bwd_dq_kernel(const Args a) {
     lse_r[hr] = qi < a.Sq ? a.lse[(int64_t)bh * a.Sq + qi] : INFINITY;
     del_r[hr] = qi < a.Sq ? a.delta[(int64_t)bh * a.Sq + qi] : 0.f;
   }
-  float dq[ND][4];
+  float dq[DT][4];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+  for (int i = 0; i < DT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
 
-  const __nv_bfloat16* kb = a.k + b * a.st[1][0] + kh * a.st[1][2];
-  const __nv_bfloat16* vb = a.v + b * a.st[2][0] + kh * a.st[2][2];
-  for (int t0 = t_begin; t0 < k_hi; t0 += kKeyTile) {
-    __syncthreads();   // every warp is done with the previous K / V tile
-    load_rows<D, DR, kKeyTile>(sK, kb, a.st[1][1], t0, a.Sk, tid);
-    load_rows<D, DR, kKeyTile>(sV, vb, a.st[2][1], t0, a.Sk, tid);
+  const uint32_t q_base = smem_u32(sQ), o_base = smem_u32(sO);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) load_kv(it + 1, stage ^ 1);
     cp_async_commit();
-    cp_async_wait<0>();
+    cp_async_wait<1>();   // tile `it` (and Q, dO) have landed
+    fence_async_smem();
     __syncthreads();
+    const uint32_t k_base = smem_u32(sK + stage * L::kElems);
+    const uint32_t v_base = smem_u32(sV + stage * L::kElems);
 
-    float s[NK][4], dp[NK][4];
+    // S = Q K^T and dP = dO V^T, 64 x 64 each, as two groups
+    float s[NT][4], dp[NT][4];
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NK; ++i)
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_m64n64(&s[0][0], L::kmajor(q_base, ks), L::kmajor(k_base, ks), ks > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_m64n64(&dp[0][0], L::kmajor(o_base, ks), L::kmajor(v_base, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // S has landed; dP may still run
+
+    const int t0 = k_lo + it * kBK;
+    const bool edge = t0 + kBK > a.Sk || (a.causal && t0 + kBK - 1 > first_pos) ||
+                      (a.window >= 0 && t0 <= last_pos - a.window);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(aq, frag_a<S>(sQ, warp * 16, ks * 16, lane));
-      ldsm_x4(ao, frag_a<S>(sO, warp * 16, ks * 16, lane));
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, frag_b_nk<S>(sK, np * 16, ks * 16, lane));
-        ldsm_x4(bv, frag_b_nk<S>(sV, np * 16, ks * 16, lane));
-        mma16816(s[2 * np], aq, bk[0], bk[1]);
-        mma16816(s[2 * np + 1], aq, bk[2], bk[3]);
-        mma16816(dp[2 * np], ao, bv[0], bv[1]);
-        mma16816(dp[2 * np + 1], ao, bv[2], bv[3]);
-      }
-    }
-    // dS = P (dP - delta); element e of tile nt: query qa + 8 (e >> 1), key
-    // t0 + 8 nt + 2 t4 + (e & 1)
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hr = e >> 1;
-        const int kp = t0 + nt * 8 + 2 * t4 + (e & 1);
-        const int qi = qa + 8 * hr;
-        const bool ok = qi < a.Sq && visible(kp, qi + off, a.Sk, a.causal, a.window);
-        const float p = ok ? fast_exp2(fmaf(s[nt][e], a.scale_log2, -lse_r[hr])) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - del_r[hr]);
+        float p = fast_exp2(fmaf(s[nt][e], a.scale_log2, -lse_r[hr]));
+        if (edge && !visible(t0 + nt * 8 + 2 * t4 + (e & 1), qa + 8 * hr + off, a.Sk, a.causal,
+                             a.window))
+          p = 0.f;
+        s[nt][e] = p;
       }
-    // dQ += dS K over the tile's keys in k16 steps
+    wgmma_wait<0>();   // dP has landed
+    // dS = P (dP - delta), then dQ += dS K with K MN-major
 #pragma unroll
-    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-      uint32_t ad[4];
-      ad[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      ad[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      ad[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      ad[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int dd = 0; dd < ND / 2; ++dd) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, frag_a<S>(sK, kk * 16, dd * 16, lane));
-        mma16816(dq[2 * dd], ad, bk[0], bk[1]);
-        mma16816(dq[2 * dd + 1], ad, bk[2], bk[3]);
-      }
-    }
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - del_r[e >> 1]);
+    uint32_t da[kBK / 16][4];
+    pack_a<kBK / 16>(da, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_tb_n<D>(&dq[0][0], da[kk], L::mnmajor(k_base, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncthreads();   // every warp is done with this stage before it is refilled
   }
   cp_async_wait<0>();
+  __syncthreads();     // Q is free for staging
 
-  __nv_bfloat16* dqb = a.dq + b * a.st[5][0] + h * a.st[5][2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int qi = qa + 8 * hr;
-    if (qi >= a.Sq) continue;
-#pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-      const int c = dt * 8 + 2 * t4;
-      if (c >= DR) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)qi * a.st[5][1] + c) =
-          __floats2bfloat162_rn(dq[dt][2 * hr] * a.scale, dq[dt][2 * hr + 1] * a.scale);
-    }
-  }
+  store_rows<D, DR>(dq, a.scale, sQ, a.dq + b * a.st[5][0] + h * a.st[5][2], a.st[5][1], q0,
+                    a.Sq, warp, lane);
+}
+
+template <int D>
+constexpr int dkdv_smem() {
+  return 1024 + (2 * kRows + 4 * kBQ) * D * 2 + 4 * kBQ * 4;
+}
+template <int D>
+constexpr int dq_smem() {
+  return 1024 + (2 * kRows + 4 * kBK) * D * 2;
 }
 
 template <int D, int DR>
 int launch(const Args& a, float* delta, cudaStream_t st) {
-  constexpr int S = D + 8;
-  const int smem_kv = (2 * kRows + 2 * BwdTiles<D>::kQ) * S * 2 + 2 * BwdTiles<D>::kQ * 4;
-  const int smem_q = (2 * kRows + 2 * kKeyTile) * S * 2;
   auto kdkdv = flash_bwd_dkdv_kernel<D, DR>;
   auto kdq = flash_bwd_dq_kernel<D, DR>;
-  cudaError_t e = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  cudaError_t e = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       dkdv_smem<D>());
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  e = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
   if (e != cudaSuccess) return (int)e;
 
   const int64_t rows = (int64_t)a.B * a.H * a.Sq;
-  const int per_block = kThreads / 32;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0, st>>>(
+  flash_bwd_delta_kernel<<<(unsigned)((rows + kDeltaRows - 1) / kDeltaRows), kThreads, 0, st>>>(
       a.o, a.dout, delta, a.H, a.Sq, DR, rows, a.st[3][0], a.st[3][1], a.st[3][2],
       a.st[4][0], a.st[4][1], a.st[4][2]);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  kdkdv<<<dim3(a.B * a.KH, (a.Sk + kRows - 1) / kRows), kThreads, smem_kv, st>>>(a);
+  kdkdv<<<dim3(a.B * a.KH, (a.Sk + kRows - 1) / kRows), kThreads, dkdv_smem<D>(), st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  kdq<<<dim3(a.B * a.H, (a.Sq + kRows - 1) / kRows), kThreads, smem_q, st>>>(a);
+  kdq<<<dim3(a.B * a.H, (a.Sq + kRows - 1) / kRows), kThreads, dq_smem<D>(), st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int D, int DR>
+int resources(int* out) {
+  const void* fns[3] = {(const void*)flash_bwd_delta_kernel,
+                        (const void*)flash_bwd_dkdv_kernel<D, DR>,
+                        (const void*)flash_bwd_dq_kernel<D, DR>};
+  const int smem[3] = {0, dkdv_smem<D>(), dq_smem<D>()};
+  for (int i = 0; i < 3; ++i) {
+    cudaFuncAttributes at;
+    const cudaError_t e = cudaFuncGetAttributes(&at, fns[i]);
+    if (e != cudaSuccess) return (int)e;
+    out[2 * i] = at.numRegs;
+    out[2 * i + 1] = smem[i] + (int)at.sharedSizeBytes;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -494,6 +563,19 @@ int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
     case 64: return launch<64, 64>(a, delta, st);
     case 120: return launch<128, 120>(a, delta, st);
     default: return launch<128, 128>(a, delta, st);
+  }
+}
+
+// Registers per thread and shared memory per block (dynamic + static, in
+// bytes) of the delta, dK/dV and dQ kernels at head dim D, into out[6] as
+// (registers, shared) pairs in that order. Returns a cudaError_t.
+int flash_bwd_resources(int D, int* out) {
+  switch (D) {
+    case 32: return resources<32, 32>(out);
+    case 64: return resources<64, 64>(out);
+    case 120: return resources<128, 120>(out);
+    case 128: return resources<128, 128>(out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 }

@@ -1,6 +1,7 @@
 // PTX wrappers for Hopper (sm_90a) used by the kernels in this directory:
-// 16-byte cp.async with zero fill, the async-proxy fence, and warpgroup
-// matrix multiply (wgmma) with its shared-memory matrix descriptors.
+// cp.async with zero fill, the async-proxy fence, warpgroup matrix multiply
+// (wgmma) with its shared-memory matrix descriptors, and the swizzled tile
+// layout the flash kernels keep their operands in.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -16,6 +17,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+// 4-byte global -> shared copy (an f32 row statistic), zero-filled when !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(n) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -39,6 +46,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// waits until at most N committed groups are pending (groups retire in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
@@ -118,6 +130,69 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float* d, const uint32_t* a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x N) += a (registers) * b (shared memory, MN-major); N 32, 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb_n(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "N");
+  if constexpr (N == 128) wgmma_rs_m64n128_tb(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_m64n64_tb(d, a, db);
+  else wgmma_rs_m64n32_tb(d, a, db);
+}
+
+// A (ROWS, D) bf16 tile as the wgmma descriptors read it. D >= 64: 128-byte
+// swizzle, the row split into 64-column blocks of ROWS rows x 128 bytes;
+// D = 32: 64-byte swizzle on 64-byte rows. The tile base is 1024-byte
+// aligned and ROWS a multiple of 8, so every swizzle atom (8 rows) is
+// aligned to its size.
+template <int D, int ROWS>
+struct SwTile {
+  static_assert(ROWS % 8 == 0 && (D == 32 || D == 64 || D == 128), "tile shape");
+  static constexpr int kCols = D >= 64 ? 64 : 32;           // elements per stored row
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr uint64_t kSwizzle = D >= 64 ? 1 : 2;     // 128-byte : 64-byte
+  static constexpr int kElems = ROWS * D;
+  __device__ static __forceinline__ int off(int row, int chunk) {   // 16-byte chunk, in elements
+    if constexpr (D >= 64)
+      return (chunk >> 3) * (ROWS * 64) + row * 64 + (((chunk & 7) ^ (row & 7)) << 3);
+    else
+      return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
+  }
+  // K-major operand (the head dim is the product's depth): columns 16 ks ..
+  // 16 ks + 15. Leading offset unused; stride offset: the next 8 rows.
+  __device__ static __forceinline__ uint64_t kmajor(uint32_t base, int ks) {
+    return smem_desc(base + (ks * 16 / kCols) * (ROWS * kRowBytes) + (ks * 16 % kCols) * 2,
+                     16, 8 * kRowBytes, kSwizzle);
+  }
+  // MN-major operand (the rows are the product's depth): rows 16 kk .. 16 kk
+  // + 15. Leading offset: the next 64-column block; stride offset: the next
+  // 8 rows.
+  __device__ static __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
+    return smem_desc(base + kk * 16 * kRowBytes, ROWS * kRowBytes, 8 * kRowBytes, kSwizzle);
+  }
+};
+
+// cp.async of ROWS rows of DR bf16 into a SwTile<D, ROWS> (D >= DR) by
+// THREADS threads: global rows row0 + r (row stride `ss` elements from
+// `src`); rows at or past `limit`, and the columns DR .. D - 1 of every row,
+// are zero-filled. Each thread walks one 16-byte column with a running
+// pointer, so the unrolled loop keeps one address live, not one per row.
+template <int D, int DR, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int64_t ss, int row0, int limit, int tid) {
+  constexpr int CH = D / 8, RS = THREADS / CH;
+  static_assert(ROWS % RS == 0, "whole rows per pass");
+  const int c = tid % CH, r0 = tid / CH;
+  const bool col_ok = c < DR / 8;
+  const __nv_bfloat16* p = src + (int64_t)(row0 + r0) * ss + (col_ok ? c * 8 : 0);
+#pragma unroll
+  for (int i = 0; i < ROWS / RS; ++i) {
+    const int r = r0 + i * RS;
+    const bool ok = col_ok && row0 + r < limit;
+    cp_async16(smem_u32(dst + SwTile<D, ROWS>::off(r, c)), ok ? p : src, ok);
+    p += RS * ss;
+  }
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {   // exp2(-inf) = +0

@@ -28,6 +28,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 HEAD_DIMS = (32, 64, 120, 128)   # head dims the kernels are compiled for
+BWD_PARTS = ("delta", "dkdv", "dq")   # the backward's kernels, in launch order
 _MAX_Q_TILES = 65535           # grid y: query tiles of 64 rows
 
 
@@ -49,6 +50,19 @@ def _bwd_fn():
                      ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
+
+
+def bwd_resources(head_dim: int) -> dict:
+    """Registers per thread and shared memory per block (bytes) of the
+    backward's delta, dK/dV and dQ kernels at `head_dim`, as the card's
+    runtime reports them (CUDA only)."""
+    f = build.load("flash_attention_bwd").flash_bwd_resources
+    f.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    build.check(f(int(head_dim), ctypes.cast(out, ctypes.c_void_p)), "bwd_resources")
+    return {name: {"registers": out[2 * i], "smem_bytes": out[2 * i + 1]}
+            for i, name in enumerate(BWD_PARTS)}
 
 
 def _ready(t: torch.Tensor) -> torch.Tensor:

@@ -107,11 +107,12 @@ def _check_flags(args) -> None:
                          f"0 .. {args.steps - 1}")
 
 
-def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
+def profile_summary(prof, wall_s: float) -> dict:
     """Device busy seconds (kernels and copies), the device's idle share of
-    `wall_s`, and the device ops that take the most time, from a
-    ``torch.profiler`` run.  Only this process's work is traced: ranks that
-    share the card add device time the trace does not see."""
+    `wall_s`, and every device op with its seconds and count, the most time
+    first, from a ``torch.profiler`` run.  Only this process's work is
+    traced: ranks that share the card add device time the trace does not
+    see."""
     dev_ops = {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):   # host ops: not device time
@@ -123,8 +124,8 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
     return {"wall_s": wall_s, "device_busy_s": busy,
             "device_idle_share": (1 - busy / wall_s) if dev_ops and wall_s > 0 else None,
             "device_launches": sum(c for _, c in dev_ops.values()),
-            "top_device_ops": [[k[:100], s, c] for k, (s, c) in sorted(
-                dev_ops.items(), key=lambda kv: -kv[1][0])[:top]]}
+            "device_ops": [[k[:100], s, c] for k, (s, c) in sorted(
+                dev_ops.items(), key=lambda kv: -kv[1][0])]}
 
 
 def train(args, rank: int = 0) -> dict:

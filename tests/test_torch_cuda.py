@@ -251,7 +251,9 @@ def _grads_plain(q, k, v, do, causal, window):
     (1, 33, 80, 3, 1, 120, True, 16),                   # query suffix + window, D 120
     (1, 77, 150, 2, 2, 128, True, None),                # query suffix, D 128
     (1, 96, 96, 4, 2, 64, False, None),                 # not causal
-    (1, 1024, 1024, 16, 16, 64, True, None)])           # qwen1.5-0.5b's heads
+    (1, 1024, 1024, 16, 16, 64, True, None),            # qwen1.5-0.5b's heads
+    (1, 333, 333, 6, 2, 128, True, None),               # D 128, group 3, ragged last tile
+    (1, 100, 160, 4, 2, 32, False, None)])              # not causal, head dim 32, Sq < Sk
 def test_flash_bwd_matches_plain(cuda, b, sq, sk, h, kh, d, causal, window):
     q = _rnd(cuda, b, sq, h, d, seed=1)
     k = _rnd(cuda, b, sk, kh, d, seed=2)
@@ -272,6 +274,23 @@ def test_flash_bwd_matches_plain(cuda, b, sq, sk, h, kh, d, causal, window):
                                    rtol=2e-2, msg=name)
     if sq > sk:                      # queries with no valid key: zero gradient
         assert not got[0][:, :sq - sk].any()
+
+
+@pytest.mark.parametrize("h,kh,d,window", [(4, 4, 64, None), (6, 2, 128, 100),
+                                          (8, 2, 120, None)])
+def test_flash_bwd_is_deterministic(cuda, h, kh, d, window):
+    """dK and dV are summed over the GQA group in registers in a fixed order
+    and every output element is written once: two calls give the same bits."""
+    q = _rnd(cuda, 1, 333, h, d, seed=1)
+    k = _rnd(cuda, 1, 333, kh, d, seed=2)
+    v = _rnd(cuda, 1, 333, kh, d, seed=3)
+    do = _rnd(cuda, 1, 333, h, d, seed=4)
+    o, lse = fa.flash_attention_bshd(q, k, v, window=window, return_lse=True)
+    first = fa.flash_attention_bwd_bshd(q, k, v, o, lse, do, window=window)
+    second = fa.flash_attention_bwd_bshd(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
 
 
 def test_flash_function_counts_the_backward_launch(cuda):
