@@ -34,14 +34,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             time by kernel, the device's idle share, the host ops that take
             the most time, and each window's wall time without the profiler;
 7. train    ``python -m repro_torch.launch.train``'s path: full-width
-            qwen1.5-0.5b (24 layers, random weights from seed 0) as 2 pod
-            ranks, two processes sharing the one card, 4096 tokens a step
-            per pod, 3 steps with each wire codec (none, bf16, int8) over the
-            hierarchical streamed psum; both pods' parameters bit-identical
-            after every step, every step's chunks and wire bytes equal to the
-            plan, and the kernels launched in each run (counts reset in each
-            rank just before it trains); step ms, tokens/s per pod, sync ms,
-            wire bytes and peak memory per rank, and one profiled int8 step.
+            qwen1.5-0.5b (24 layers, random weights from seed 0) as 2 pods x
+            1 data rank, two processes sharing the one card, 4096 tokens a
+            step per pod, 3 steps with each wire codec (none, bf16, int8)
+            over the hierarchical streamed psum; both pods' parameters
+            bit-identical after every step, every step's chunks and wire
+            bytes equal to the plan, and the kernels launched in each run
+            (counts reset in each rank just before it trains); step ms,
+            tokens/s per pod, sync ms, wire bytes and peak memory per rank,
+            and one profiled int8 step;
+8. zero     the same launcher on 2 pods x 2 data ranks, four processes on
+            the card, ZeRO-3 (parameters and moments scattered over each
+            pod's data ranks, weights gathered at use, gradients
+            reduce-scattered in the backward, the 1/2 shards across pods),
+            one 4096-token sequence a rank, 3 steps with no codec and with
+            int8; the same checks, each data index's shards bit-identical
+            across pods, and the peak memory of all four ranks.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -63,7 +71,7 @@ HBM_BPS = 3.35e12            # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
-PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train")
+PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train", "zero")
 CODECS = ("none", "bf16", "int8")
 
 
@@ -855,92 +863,136 @@ def phase_profile(torch, dev, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: full-width training across two pods on the one card
+# phase 7: full-width training across pods on the one card
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--global-batch", "2",
               "--steps", "3", "--pods", "2", "--mode", "hierarchical",
               "--check-replicas"]
 PROFILE_STEP = 3     # the int8 run takes a fourth step, under the profiler
+# 2 pods x 2 data ranks, ZeRO-3 (zero1 is on by default): one sequence a rank
+ZERO_ARGS = ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--global-batch", "4",
+             "--steps", "3", "--pods", "2", "--ranks", "4", "--mode", "hierarchical",
+             "--check-replicas"]
+ZERO_CODECS = ("none", "int8")
+
+
+def _train_run(codec: str, argv: list, out_dir: str, label: str) -> dict:
+    """One ``launch.train.main`` run: check every rank's report and return
+    the run's numbers.  Checks: each rank noted the plan; the flash forward
+    and backward and rmsnorm launched on every rank, quant and dequant once
+    per chunk per step with int8 and never without; every step's loss finite
+    and its chunks, payload and wire bytes the plan's; the replicas' checksums
+    equal after every step (the launcher's ``--check-replicas`` fails first
+    if they differ): every rank's without ZeRO, under ZeRO the two pods'
+    shards of each data index (and the two data indices' shards differ)."""
+    import numpy as np
+    from repro_torch.launch import train as launcher
+    rep = os.path.join(out_dir, f"{label}_{codec}")
+    t0 = time.perf_counter()
+    launcher.main(argv + ["--compress", codec, "--report", rep])
+    wall = time.perf_counter() - t0
+    n = json.load(open(f"{rep}.rank0.json"))["ranks"]
+    reps = [json.load(open(f"{rep}.rank{r}.json")) for r in range(n)]
+    r0 = reps[0]
+    plan = r0["plan"]
+    tag = f"{label} {codec}"
+    for r, rp in enumerate(reps):
+        check(rp["plan"] == plan, f"{tag}: rank {r} noted the same plan")
+        la = rp["launches"]
+        check(la["flash_attention"] > 0 and la["flash_attention_bwd"] > 0
+              and la["rmsnorm"] > 0, f"{tag} rank {r}: kernels launched {la}")
+        want_q = plan["n_chunks"] * len(rp["history"]) if codec == "int8" else 0
+        check(la["quant_int8"] == la["dequant_int8"] == want_q,
+              f"{tag} rank {r}: quant/dequant once per chunk per step "
+              f"({want_q}), got {la}")
+        for h in rp["history"]:
+            check(math.isfinite(h["loss"]), f"{tag} rank {r}: finite loss {h}")
+            check(h["n_chunks"] == plan["n_chunks"]
+                  and h["payload_bytes"] == plan["payload_bytes"]
+                  and round(h["wire_bytes"]) == plan["wire_bytes"],
+                  f"{tag} rank {r} step {h['step']}: chunks {h['n_chunks']}, "
+                  f"payload {h['payload_bytes']}, wire {h['wire_bytes']} "
+                  f"against the plan {plan}")
+    sums = {(rp["pod_index"], rp["data_index"]): [h["checksum"] for h in rp["history"]]
+            for rp in reps}
+    data = r0["data"]
+    check(r0["zero"] == (data > 1), f"{tag}: ZeRO on exactly when data > 1")
+    for d in range(data):
+        same = [sums[(p, d)] for p in range(r0["pods"])]
+        check(all(x == same[0] for x in same),
+              f"{tag}: data index {d}'s parameters bit-identical across pods "
+              f"after every step {same}")
+    if data > 1:
+        check(sums[(0, 0)] != sums[(0, 1)], f"{tag}: data ranks hold other shards")
+    h = r0["history"][1:3]            # steps 2 and 3, unprofiled
+    step_s = float(np.median([x["time_s"] for x in h]))
+    tokens = r0["seq_len"] * r0["global_batch"] // r0["pods"]
+    out = {
+        "pods": r0["pods"], "data": data, "zero": r0["zero"],
+        "wall_s_with_spawn": wall, "losses": [x["loss"] for x in r0["history"]],
+        "grad_norms": [x["grad_norm"] for x in r0["history"]],
+        "step_ms_median_steps_2_3": 1e3 * step_s,
+        "tokens_per_s_per_pod": tokens / step_s,
+        "sync_ms_median_steps_2_3": 1e3 * float(np.median([x["sync_s"] for x in h])),
+        # under ZeRO: the in-pod gathers (forward and recompute) and the
+        # backward's reduce-scatters, host clock from a device sync
+        "gather_ms_median_steps_2_3": 1e3 * float(np.median([x["gather_s"] for x in h])),
+        "reduce_scatter_ms_median_steps_2_3":
+            1e3 * float(np.median([x["reduce_scatter_s"] for x in h])),
+        "step_ms_by_rank": [[1e3 * x["time_s"] for x in rp["history"]] for rp in reps],
+        "sync_ms": [1e3 * x["sync_s"] for x in r0["history"]],
+        "wire_bytes_per_step": r0["history"][-1]["wire_bytes"],
+        "sent_bytes_per_step": r0["history"][-1]["sent_bytes"],
+        "n_chunks": plan["n_chunks"], "streams": r0["streams"],
+        "chunk_mb": r0["chunk_mb"], "plan_wire_bytes": plan["wire_bytes"],
+        "payload_bytes": plan["payload_bytes"],
+        "peak_mem_gb_per_rank": [(rp["peak_mem_bytes"] or 0) / 1e9 for rp in reps],
+        "launches_rank0": r0["launches"], "device": r0["device_name"],
+        "params": r0["params"], "seq_len": r0["seq_len"],
+        "global_batch": r0["global_batch"]}
+    if r0["profile"] is not None:
+        p = r0["profile"]
+        buckets: dict = {}
+        for name, sec, cnt in p["device_ops"]:
+            b = buckets.setdefault(_bucket(name), [0.0, 0])
+            b[0] += 1e3 * sec
+            b[1] += cnt
+        out["profile"] = {
+            "step": p["step"], "wall_ms": 1e3 * p["wall_s"],
+            "device_busy_ms": 1e3 * p["device_busy_s"],
+            "device_idle_share": p["device_idle_share"],
+            "device_launches": p["device_launches"],
+            "device_ops_by_bucket_ms": buckets,
+            "top_device_ops": [[n[:90], 1e3 * sec, cnt]
+                               for n, sec, cnt in p["device_ops"][:12]]}
+    return out
 
 
 def phase_train(torch, out_dir: str) -> dict:
-    """``python -m repro_torch.launch.train`` with each wire codec: 2 pod
-    ranks (spawned processes, gloo) on the card, full-width qwen1.5-0.5b at
-    4096 tokens, 3 steps; the int8 run takes a fourth step, which rank 0
-    runs under torch.profiler.  Each rank resets the kernel counts just before it
-    trains and reports them after; the launcher fails if the two pods'
-    parameters differ after any step (``--check-replicas``)."""
-    import numpy as np
-    from repro_torch.launch import train as launcher
+    """``python -m repro_torch.launch.train`` on 2 pods x 1 data rank (two
+    spawned processes), full-width qwen1.5-0.5b at 4096 tokens a pod, 3 steps
+    with each wire codec; the int8 run takes a fourth step, which rank 0 runs
+    under torch.profiler.  Each rank resets the kernel counts just before it
+    trains and reports them after (:func:`_train_run` checks every run)."""
     runs = {}
     for codec in CODECS:
-        rep = os.path.join(out_dir, f"train_{codec}")
-        argv = TRAIN_ARGS + ["--compress", codec, "--report", rep]
+        argv = list(TRAIN_ARGS)
         if codec == "int8":
             argv += ["--steps", str(PROFILE_STEP + 1), "--profile-step", str(PROFILE_STEP)]
-        t0 = time.perf_counter()
-        launcher.main(argv)
-        wall = time.perf_counter() - t0
-        reps = [json.load(open(f"{rep}.rank{r}.json")) for r in range(2)]
-        r0 = reps[0]
-        plan = r0["plan"]
-        for r, rp in enumerate(reps):
-            check(rp["plan"] == plan, f"{codec}: rank {r} noted the same plan")
-            la = rp["launches"]
-            check(la["flash_attention"] > 0 and la["flash_attention_bwd"] > 0
-                  and la["rmsnorm"] > 0, f"{codec} rank {r}: kernels launched {la}")
-            want_q = plan["n_chunks"] * len(rp["history"]) if codec == "int8" else 0
-            check(la["quant_int8"] == la["dequant_int8"] == want_q,
-                  f"{codec} rank {r}: quant/dequant once per chunk per step "
-                  f"({want_q}), got {la}")
-            for h in rp["history"]:
-                check(math.isfinite(h["loss"]), f"{codec} rank {r}: finite loss {h}")
-                check(h["n_chunks"] == plan["n_chunks"]
-                      and h["payload_bytes"] == plan["payload_bytes"]
-                      and round(h["wire_bytes"]) == plan["wire_bytes"],
-                      f"{codec} rank {r} step {h['step']}: chunks {h['n_chunks']}, "
-                      f"payload {h['payload_bytes']}, wire {h['wire_bytes']} "
-                      f"against the plan {plan}")
-        sums = [[h["checksum"] for h in rp["history"]] for rp in reps]
-        check(sums[0] == sums[1], f"{codec}: pods' parameters bit-identical "
-                                  f"after every step {sums}")
-        h = r0["history"][1:3]            # steps 2 and 3, unprofiled
-        step_s = float(np.median([x["time_s"] for x in h]))
-        tokens = r0["seq_len"] * r0["global_batch"] // r0["pods"]
-        runs[codec] = {
-            "wall_s_with_spawn": wall, "losses": [x["loss"] for x in r0["history"]],
-            "step_ms_median_steps_2_3": 1e3 * step_s,
-            "tokens_per_s_per_pod": tokens / step_s,
-            "sync_ms_median_steps_2_3": 1e3 * float(np.median([x["sync_s"] for x in h])),
-            "step_ms": [1e3 * x["time_s"] for x in r0["history"]],
-            "step_ms_rank1": [1e3 * x["time_s"] for x in reps[1]["history"]],
-            "sync_ms": [1e3 * x["sync_s"] for x in r0["history"]],
-            "wire_bytes_per_step": r0["history"][-1]["wire_bytes"],
-            "sent_bytes_per_step": r0["history"][-1]["sent_bytes"],
-            "n_chunks": plan["n_chunks"], "streams": r0["streams"],
-            "chunk_mb": r0["chunk_mb"], "plan_wire_bytes": plan["wire_bytes"],
-            "payload_bytes": plan["payload_bytes"],
-            "peak_mem_gb_per_rank": [(rp["peak_mem_bytes"] or 0) / 1e9 for rp in reps],
-            "launches_rank0": r0["launches"], "device": r0["device_name"],
-            "params": r0["params"], "seq_len": r0["seq_len"],
-            "global_batch": r0["global_batch"]}
-        if r0["profile"] is not None:
-            p = r0["profile"]
-            buckets: dict = {}
-            for name, sec, cnt in p["device_ops"]:
-                b = buckets.setdefault(_bucket(name), [0.0, 0])
-                b[0] += 1e3 * sec
-                b[1] += cnt
-            runs[codec]["profile"] = {
-                "step": p["step"], "wall_ms": 1e3 * p["wall_s"],
-                "device_busy_ms": 1e3 * p["device_busy_s"],
-                "device_idle_share": p["device_idle_share"],
-                "device_launches": p["device_launches"],
-                "device_ops_by_bucket_ms": buckets,
-                "top_device_ops": [[n[:90], 1e3 * sec, cnt]
-                                   for n, sec, cnt in p["device_ops"][:12]]}
-        emit({"phase": "train", "codec": codec, **runs[codec]})
+        runs[codec] = _train_run(codec, argv, out_dir, "train")
+        emit({"phase": "train", "mesh": "2x1", "codec": codec, **runs[codec]})
+    return runs
+
+
+def phase_zero(torch, out_dir: str) -> dict:
+    """The same launcher on 2 pods x 2 data ranks (four spawned processes on
+    the one card), ZeRO-3, one 4096-token sequence a rank, 3 steps with no
+    codec and with int8 (:func:`_train_run` checks every run)."""
+    runs = {}
+    for codec in ZERO_CODECS:
+        runs[codec] = _train_run(codec, ZERO_ARGS, out_dir, "zero")
+        emit({"phase": "zero", "mesh": "2x2", "codec": codec, **runs[codec]})
     return runs
 
 
@@ -1033,22 +1085,27 @@ def main() -> int:
                   **phase_profile(torch, dev, cfg, params)})
         del params
         torch.cuda.empty_cache()
-    train = {}
-    if "train" in phases:
+    train, zero = {}, {}
+    if "train" in phases or "zero" in phases:
         import tempfile
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
-            train = phase_train(torch, d)
+            if "train" in phases:
+                train = phase_train(torch, d)
+            if "zero" in phases:
+                zero = phase_zero(torch, d)
     if krows:
         line = []
-        # launches on the training path (int8 run, rank 0: all five kernels);
-        # the serving path's, from the engine's int8 run, beside them
-        on_path = train.get("int8", {}).get("launches_rank0", {})
+        # launches on the ZeRO training path (int8 run, rank 0: all five
+        # kernels); the 2-pod run's and the serving path's beside them
+        on_path = zero.get("int8", {}).get("launches_rank0", {})
+        on_pods = train.get("int8", {}).get("launches_rank0", {})
         for name, source, replaces, tol in KERNELS:
             # the row at the training path's shape
             main_row = next(r for r in krows[name] if r.get("on_path") == "train")
             line.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces,
                          "launches": on_path.get(name, 0),
+                         "launches_pods_2x1": on_pods.get(name, 0),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
                          "max_abs_err": main_row["max_abs_err"],
                          "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -2,23 +2,36 @@
 process groups.
 
 The port of the JAX package's ``core/collectives.py`` for ``algo="psum"``.
-The pod axis of the mesh (:class:`repro_torch.launch.mesh.PodMesh`) is a
-process group over the pod ranks, and each WidePath stream is a process
-group of its own over the same ranks (the JAX package's independent chains
-of chunk collectives), created once per mesh.
+The axes of the mesh (:class:`repro_torch.launch.mesh.PodMesh`) are process
+groups: the pod group over this data index's pod ranks (the WAN axis), the
+data group over this pod's ranks, and the world.  Each WidePath stream is a
+process group of its own over the pod group's ranks (the JAX package's
+independent chains of chunk collectives), created once per mesh.
 
 Modes (``CommConfig.mode``):
-  flat          one all-reduce over the pod group per leaf, unchunked: the
+  flat          one all-reduce over the world per leaf, unchunked: the
                 single-stream baseline.
-  hierarchical  in-pod reduce-scatter -> streamed/chunked cross-pod psum ->
-                in-pod all-gather; with one data rank per pod the in-pod
-                stages are the identity and this is :func:`streamed_psum`.
+  hierarchical  in-pod reduce-scatter -> streamed/chunked cross-pod psum on
+                the 1/D shards -> in-pod all-gather; with one data rank per
+                pod the in-pod stages are the identity.
+  gateway       in-pod all-reduce, the cross-pod psum carried by data rank
+                0's values alone (the other data ranks run it on zeros, as
+                the reference does), then an in-pod sum of the gateway-only
+                values: the user-space Forwarder, faithfully inefficient.
+
+The in-pod stages (:func:`all_gather_dim`, :func:`reduce_scatter_dim`,
+:func:`psum_group`) cross through host copies, as the pod groups' do
+(``core/compress.py``), and sum in rank order: every rank of a group gets
+the same bits, and a two-way sum is the reference's bit for bit.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``algo="ring"``/``"ring2"``, ``site_groups``, ``subgroup``, multi-hop
-paths, the gateway mode, and ``data > 1``.
+item: ``algo="ring"``/``"ring2"``, ``site_groups``, ``subgroup`` and
+multi-hop paths.
 """
 from __future__ import annotations
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.core import compress as comp
 from repro_torch.core import streams as st
@@ -61,7 +74,7 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
         raise queued(f"algo={algo!r}", "ring and ring2 collectives")
     if site_groups is not None or subgroup:
         raise queued("site groups and gateway subgroups",
-                     "gateway mode and site groups")
+                     "site groups")
     if path.hops:
         raise queued("multi-hop paths (Forwarder routes)",
                      "facade, relays, files, checkpoints")
@@ -110,29 +123,109 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     return unflatten(td, out)
 
 
+# ---------------------------------------------------------------------------
+# in-pod stages
+# ---------------------------------------------------------------------------
+
+def _gathered(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `x` over `group`, stacked in rank order on x's device."""
+    out, work = comp._gather(x, group)
+    work.wait()
+    return out.to(x.device)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Tiled all-gather of `x` over `group` along `dim` (rank r's block at
+    position r): ``jax.lax.all_gather(..., tiled=True)``."""
+    if group is None:
+        return x
+    return torch.cat(_gathered(x, group).unbind(0), dim=dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Tiled reduce-scatter of `x` over `group` along `dim`: this rank's
+    block of the sum, ``jax.lax.psum_scatter(..., tiled=True)``.  One
+    all-to-all moves each block to its rank (gloo has it on every torch the
+    port runs on), and the blocks are summed in rank order in x's dtype."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter_dim: dim {dim} of shape "
+                         f"{tuple(x.shape)} does not split over {n} ranks")
+    send = comp._host(torch.stack(x.chunk(n, dim=dim), 0))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return comp._rank_sum(recv.to(x.device))
+
+
+def psum_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over `group` in rank order, in x's dtype: the same bits
+    on every rank."""
+    if group is None:
+        return x
+    return comp._rank_sum(_gathered(x, group))
+
+
 def flat_allreduce(tree, mesh):
-    """One unchunked all-reduce per leaf over the pod group."""
-    if mesh is None or mesh.pod_group is None:
+    """One unchunked all-reduce per leaf over every rank of the mesh."""
+    group = None if mesh is None else mesh.world_group
+    if group is None:
         return tree
     leaves, td = flatten(tree)
-    pending = [comp.psum_start(x, mesh.pod_group) for x in leaves]
+    pending = [comp.psum_start(x, group) for x in leaves]
     return unflatten(td, [p.finish() for p in pending])
 
 
-def hierarchical_allreduce(tree, path: WidePath, mesh, dims, site_groups=None,
+def hierarchical_allreduce(tree, path: WidePath, mesh, dims,
+                           keep_scattered: bool = False, site_groups=None,
                            log=None):
-    """RS(data) -> streamed cross-pod psum -> AG(data).  With one data rank
-    per pod (the only layout ported) the in-pod stages are the identity."""
-    if mesh is not None and mesh.data > 1:
-        raise queued(f"data = {mesh.data} (in-pod reduce-scatter and ZeRO)",
-                     "data > 1 with ZeRO and reduce-scatter")
-    dim_list = flatten(dims)[0] if dims is not None else None
-    return streamed_psum(tree, path, mesh, dims=dim_list,
-                         site_groups=site_groups, log=log)
+    """RS(data) -> streamed cross-pod psum -> AG(data).
+
+    `dims` is the per-leaf scatter-dim tree (``param.tree_fsdp_dims``).  A
+    leaf whose dim is None, or does not divide over the data ranks, is
+    psummed over data instead.  With `keep_scattered` the final all-gather is
+    skipped (ZeRO: the optimizer updates shards)."""
+    group = None if mesh is None else mesh.data_group
+    leaves, td = flatten(tree)
+    dim_list = flatten(dims)[0] if dims is not None else [None] * len(leaves)
+    n = mesh.data if mesh is not None else 1
+
+    def rs(g, d):
+        if group is None:
+            return g
+        if d is None or g.dim() == 0 or g.shape[d] % n:
+            return psum_group(g, group)
+        return reduce_scatter_dim(g, d, group)
+
+    scat = [rs(g, d) for g, d in zip(leaves, dim_list)]
+    synced = flatten(streamed_psum(unflatten(td, scat), path, mesh,
+                                   dims=dim_list, site_groups=site_groups,
+                                   log=log))[0]
+    if keep_scattered or group is None:
+        return unflatten(td, synced)
+    return unflatten(td, [all_gather_dim(g, d, group) if g.shape != g0.shape
+                          else g for g, g0, d in zip(synced, leaves, dim_list)])
 
 
-def gateway_allreduce(tree, path: WidePath, mesh):
-    raise queued("the gateway (Forwarder) mode", "gateway mode and site groups")
+def gateway_allreduce(tree, path: WidePath, mesh, log=None):
+    """The user-space Forwarder: the pod's data rank 0 relays all WAN
+    traffic.  In-pod all-reduce; the streamed cross-pod psum, which every
+    data rank runs over its own pod group, the non-gateway ranks on zeros;
+    then the in-pod sum of the gateway-only values (the in-pod broadcast)."""
+    group = None if mesh is None else mesh.data_group
+    leaves, td = flatten(tree)
+    leaves = [psum_group(g, group) for g in leaves]
+    if mesh is None or mesh.pod_group is None:
+        return unflatten(td, leaves)
+    if group is None:
+        return streamed_psum(unflatten(td, leaves), path, mesh, log=log)
+    is_gw = mesh.data_index == 0
+    masked = [g if is_gw else torch.zeros_like(g) for g in leaves]
+    crossed = flatten(streamed_psum(unflatten(td, masked), path, mesh,
+                                    log=log))[0]
+    return unflatten(td, [psum_group(g if is_gw else torch.zeros_like(g), group)
+                          for g in crossed])
 
 
 def wide_allreduce(tree, path: WidePath, mesh, *, dims=None, site_groups=None,
@@ -142,7 +235,7 @@ def wide_allreduce(tree, path: WidePath, mesh, *, dims=None, site_groups=None,
     if mode == "flat":
         return flat_allreduce(tree, mesh)
     if mode == "gateway":
-        return gateway_allreduce(tree, path, mesh)
+        return gateway_allreduce(tree, path, mesh, log=log)
     if mode == "hierarchical":
         return hierarchical_allreduce(tree, path, mesh, dims,
                                       site_groups=site_groups, log=log)

@@ -1,15 +1,24 @@
 """The mesh of the port: ``torch.distributed`` process groups in place of the
 JAX package's device mesh (``launch/mesh.py``).
 
-A :class:`PodMesh` has the axis sizes ``pod``, ``data`` and ``model``, this
-rank's pod index, the pod group (one rank per pod, the WAN axis) and, once
-asked for, one process group per WidePath stream over the same ranks.  Every
-group is created on every rank in the same order, once per mesh, never per
-step.  The groups use gloo: the card's tensors cross through host memory,
-where MPWide's WAN sockets carry them too, and gloo, unlike NCCL, can put two
-ranks on one card.  ``data > 1`` and ``model > 1`` are queued (ROADMAP.md
-queue A, 'data > 1 with ZeRO and reduce-scatter', and the other model
-families for tensor parallelism), and so are NCCL pod groups across cards.
+A :class:`PodMesh` has the axis sizes ``pod``, ``data`` and ``model`` and
+lays its ranks out as the JAX mesh ``(pod, data, model)`` is, row-major:
+``rank = pod_index * data + data_index`` (``model`` is 1).  Each rank holds
+the groups of its axes:
+
+* the data group, the ranks of its pod (the in-pod axis: ZeRO's gathers and
+  reduce-scatters, the in-pod stages of the hierarchical and gateway modes);
+* the pod group, the ranks of its data index, one per pod (the WAN axis);
+* the world group (the flat mode);
+* once asked for, one process group per WidePath stream over its pod group.
+
+Every group is created on every rank in one fixed order, once per mesh,
+never per step: ``dist.new_group`` is collective over the whole world, so a
+rank also creates the groups it is not a member of.  The groups use gloo:
+the card's tensors cross through host memory, where MPWide's WAN sockets
+carry them too, and gloo, unlike NCCL, can put several ranks on one card.
+``model > 1`` is queued (ROADMAP.md queue A, 'tensor parallelism and the
+production meshes'), and so are NCCL groups across cards.
 """
 from __future__ import annotations
 
@@ -31,7 +40,9 @@ class PodMesh:
     model: int
     rank: int
     device: torch.device
-    pod_group: Optional[object] = None       # None with one pod
+    pod_group: Optional[object] = None       # this data index's pods; None with one pod
+    data_group: Optional[object] = None      # this pod's data ranks; None with one
+    world_group: Optional[object] = None     # every rank; None with one
     _streams: list = field(default_factory=list, repr=False)
 
     @property
@@ -43,18 +54,39 @@ class PodMesh:
         return self.rank // (self.data * self.model)
 
     @property
+    def data_index(self) -> int:
+        return (self.rank // self.model) % self.data
+
+    @property
     def n_ranks(self) -> int:
         return self.pod * self.data * self.model
 
+    def pod_ranks(self, d: int) -> list[int]:
+        """The ranks of data index `d`, one per pod, in pod order."""
+        return [p * self.data + d for p in range(self.pod)]
+
+    def group_of(self, axes) -> Optional[object]:
+        """The process group over `axes` (a subset of ("pod", "data")), or
+        None when those axes hold one rank."""
+        axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        if not axes:
+            return None
+        if set(axes) == {"pod", "data"}:
+            return self.world_group
+        return self.pod_group if axes == ("pod",) else self.data_group
+
     def stream_groups(self, n: int) -> list:
-        """The first `n` stream groups, created the first time they are
-        asked for.  Every rank builds the same steps, so every rank asks for
-        the same counts in the same order."""
+        """This data index's first `n` stream groups over its pod group,
+        created the first time they are asked for.  Every rank runs the same
+        sync plan, so every rank asks for the same counts in the same order;
+        each new stream creates one group per data index, in index order."""
         if self.pod_group is None:
             return []
         while len(self._streams) < n:
-            self._streams.append(dist.new_group(list(range(self.n_ranks)),
-                                                backend=BACKEND))
+            for d in range(self.data):
+                g = dist.new_group(self.pod_ranks(d), backend=BACKEND)
+                if d == self.data_index:
+                    self._streams.append(g)
         return self._streams[:n]
 
 
@@ -62,24 +94,36 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *,
                     device="cuda") -> PodMesh:
     """A mesh over the ranks of the default process group (which must exist
     when ``pod * data * model > 1``), this rank on `device`."""
-    if data != 1:
-        raise queued(f"data = {data}", "data > 1 with ZeRO and reduce-scatter")
     if model != 1:
         raise queued(f"model = {model} (tensor parallelism)",
-                     "the other model families")
+                     "tensor parallelism and the production meshes")
     n = pod * data * model
-    if n < 1:
+    if pod < 1 or data < 1 or n < 1:
         raise ValueError(f"mesh of pod={pod} data={data} model={model} has no rank")
-    rank = 0
-    group = None
-    if n > 1:
-        if not dist.is_initialized():
-            raise RuntimeError(f"a mesh of {n} ranks needs "
-                               f"torch.distributed.init_process_group first")
-        if dist.get_world_size() != n:
-            raise ValueError(f"mesh of {n} ranks over a process group of "
-                             f"{dist.get_world_size()}")
-        rank = dist.get_rank()
-        group = dist.new_group(list(range(n)), backend=BACKEND)
-    return PodMesh(pod=pod, data=data, model=model, rank=rank,
-                   device=torch.device(device), pod_group=group)
+    mesh = PodMesh(pod=pod, data=data, model=model, rank=0,
+                   device=torch.device(device))
+    if n == 1:
+        return mesh
+    if not dist.is_initialized():
+        raise RuntimeError(f"a mesh of {n} ranks needs "
+                           f"torch.distributed.init_process_group first")
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh of {n} ranks over a process group of "
+                         f"{dist.get_world_size()}")
+    mesh.rank = dist.get_rank()
+    # one fixed order on every rank: world, the data groups by pod, the pod
+    # groups by data index; an axis that spans the world uses its group
+    mesh.world_group = dist.new_group(list(range(n)), backend=BACKEND)
+    if data > 1:
+        for p in range(pod):
+            g = (mesh.world_group if pod == 1 else
+                 dist.new_group([p * data + d for d in range(data)], backend=BACKEND))
+            if p == mesh.pod_index:
+                mesh.data_group = g
+    if pod > 1:
+        for d in range(data):
+            g = (mesh.world_group if data == 1 else
+                 dist.new_group(mesh.pod_ranks(d), backend=BACKEND))
+            if d == mesh.data_index:
+                mesh.pod_group = g
+    return mesh

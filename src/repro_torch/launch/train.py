@@ -4,13 +4,18 @@
       --shape train_4k --global-batch 2 --steps 3 --compress int8
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 2 \
       --device cpu --steps 2
+  python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 2 \
+      --ranks 4 --device cpu --steps 2
 
-Runs on the CUDA card unless ``--device cpu``.  Each pod is one rank of a
-``torch.distributed`` gloo group (see ``launch/mesh.py``).  With ``RANK`` and
+Runs on the CUDA card unless ``--device cpu``.  ``--ranks N`` (default
+``--pods``) stands for the JAX launcher's device count: the mesh is ``pods``
+x ``N // pods`` data ranks, each rank one process of a ``torch.distributed``
+gloo group (see ``launch/mesh.py``).  With data > 1 and the hierarchical mode
+the step is ZeRO-3 (``TrainConfig.zero1``, on by default).  With ``RANK`` and
 ``WORLD_SIZE`` in the environment (a launcher such as torchrun) this process
-is one rank; without them ``--pods N`` spawns N ranks, rank r on
-``cuda:{r % device_count}``, so several pods may share one card.  The
-trainer reads the global batch and gives pod r its rows.
+is one rank; without them the launcher spawns N ranks, rank r on
+``cuda:{r % device_count}``, so several ranks may share one card.  The
+trainer reads the global batch and gives each rank its rows.
 
 The JAX launcher's checkpoint, production-mesh, route, chaos, local-SGD and
 membership flags are not ported yet and stop the launcher naming their
@@ -43,8 +48,8 @@ from repro_torch.runtime import Trainer
 QUEUED_FLAGS = {
     "ckpt_dir": "facade, relays, files, checkpoints",
     "replica_dir": "facade, relays, files, checkpoints",
-    "production_mesh": "data > 1 with ZeRO and reduce-scatter",
-    "multi_pod": "data > 1 with ZeRO and reduce-scatter",
+    "production_mesh": "tensor parallelism and the production meshes",
+    "multi_pod": "tensor parallelism and the production meshes",
     "route": "facade, relays, files, checkpoints",
     "backup_links": "topology, chaos and elasticity",
     "chaos_drop": "topology, chaos and elasticity",
@@ -69,14 +74,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced model + small shapes")
     ap.add_argument("--pods", type=int, default=1,
-                    help="pod ranks (one gloo rank each)")
+                    help="pods (the WAN axis of the mesh)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks in all, one process each (default --pods); "
+                         "data ranks per pod = ranks // pods")
     ap.add_argument("--data", default="synthetic", choices=["synthetic", "binary"])
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device type; 'cpu' runs the kernels' plain versions")
     ap.add_argument("--check-replicas", action="store_true",
-                    help="after every step, fail unless every pod's parameters "
-                         "are bit-identical")
+                    help="after every step, fail unless the replicas' parameters "
+                         "(under ZeRO: each data index's shards) are bit-identical")
     ap.add_argument("--report", default=None, metavar="PATH",
                     help="write rank r's run as JSON to PATH.rank{r}.json")
     ap.add_argument("--profile-step", type=int, default=None, metavar="K",
@@ -95,6 +103,11 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _check_flags(args) -> None:
+    if args.ranks is None:
+        args.ranks = args.pods
+    if args.pods < 1 or args.ranks < 1 or args.ranks % args.pods:
+        raise SystemExit(f"--ranks {args.ranks} does not split into "
+                         f"--pods {args.pods} equal pods")
     for flag, item in QUEUED_FLAGS.items():
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to PyTorch "
@@ -144,7 +157,7 @@ def train(args, rank: int = 0) -> dict:
     seq = args.seq_len or (64 if args.smoke else base.seq_len)
     gb = args.global_batch or (8 if args.smoke else base.global_batch)
     shape = ShapeConfig(base.name, seq, gb, "train")
-    mesh = make_local_mesh(pod=args.pods, device=dev)
+    mesh = make_local_mesh(pod=args.pods, data=args.ranks // args.pods, device=dev)
     rc = RunConfig(
         model=cfg, shape=shape,
         comm=CommConfig(mode=args.mode, streams=args.streams,
@@ -159,7 +172,8 @@ def train(args, rank: int = 0) -> dict:
     trainer = Trainer(rc, mesh, check_replicas=args.check_replicas)
     path = trainer.bundle.path
     say(f"[train] {args.arch} params={cfg.param_count():,} mesh={mesh.shape} "
-        f"mode={args.mode} compress={args.compress} streams={path.streams} "
+        f"mode={args.mode} zero={trainer.bundle.zero} compress={args.compress} "
+        f"streams={path.streams} "
         f"chunk={path.comm.chunk_mb}MiB device={dev}")
     say(f"[train] {trainer.init_or_restore()} at step {trainer.step}")
     ops.reset_launch_counts()
@@ -183,7 +197,10 @@ def train(args, rank: int = 0) -> dict:
     say(f"[train] done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
         f"stragglers flagged: {len(trainer.detector.flagged)}")
     plan = get_telemetry().path(path.key).plan
-    report = {"rank": rank, "pods": args.pods, "device": str(dev),
+    report = {"rank": rank, "pods": args.pods, "ranks": args.ranks,
+              "data": mesh.data, "pod_index": mesh.pod_index,
+              "data_index": mesh.data_index, "zero": trainer.bundle.zero,
+              "device": str(dev),
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),
               "arch": cfg.name, "params": cfg.param_count(),
@@ -205,7 +222,7 @@ def train(args, rank: int = 0) -> dict:
 
 def _worker(rank: int, args, init_method: str) -> None:
     dist.init_process_group(BACKEND, init_method=init_method, rank=rank,
-                            world_size=args.pods)
+                            world_size=args.ranks)
     try:
         train(args, rank)
     finally:
@@ -217,22 +234,22 @@ def main(argv=None) -> None:
     _check_flags(args)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         dist.init_process_group(BACKEND, init_method="env://")
-        if dist.get_world_size() != args.pods:
+        if dist.get_world_size() != args.ranks:
             raise SystemExit(f"WORLD_SIZE={dist.get_world_size()} but "
-                             f"--pods {args.pods}")
+                             f"--ranks {args.ranks}")
         try:
             train(args, dist.get_rank())
         finally:
             dist.destroy_process_group()
         return
-    if args.pods == 1:
+    if args.ranks == 1:
         train(args, 0)
         return
     rdv = tempfile.mkdtemp(prefix="repro_torch_train_")
     try:
         torch.multiprocessing.start_processes(
             _worker, args=(args, f"file://{os.path.join(rdv, 'rendezvous')}"),
-            nprocs=args.pods, join=True, start_method="spawn")
+            nprocs=args.ranks, join=True, start_method="spawn")
     finally:
         shutil.rmtree(rdv, ignore_errors=True)
 

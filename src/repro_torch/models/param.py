@@ -5,6 +5,11 @@ single source the port derives initialization (:func:`tree_init`) and the
 KV-cache buffers.  :func:`params_from_jax` takes the JAX package's parameter
 tree (as numpy arrays) into the port's, keeping its names and its stacked
 ``(layers, ...)`` layout, so both packages compute with the same weights.
+
+Under ZeRO a rank holds the shard of each leaf that the JAX package's
+``NamedSharding`` over ``"data"`` gives its data index: the leaf cut into
+``data`` equal blocks along its FSDP dim (:func:`fsdp_dim`), block i on data
+index i (:func:`shard_leaf`; :func:`gather_leaf` is the reverse).
 """
 from __future__ import annotations
 
@@ -61,16 +66,53 @@ def init_one(pd: PD, gen: torch.Generator, device) -> torch.Tensor:
     return x.mul_(std).to(dt)
 
 
-def tree_init(defs, seed: int = 0, *, device="cuda"):
-    """Initialize a full param tree from PDs: one `torch.Generator` seeded
-    with `seed` on `device`, drawn leaf by leaf in sorted-key order.  The
-    draws differ from the JAX package's `jax.random` ones; tests that
-    compare the two packages take the JAX package's tree through
-    :func:`params_from_jax`."""
+def shard_leaf(x: torch.Tensor, dim: Optional[int], index: int,
+               n: int) -> torch.Tensor:
+    """Block `index` of `n` equal blocks of `x` along `dim` (a copy, so the
+    full leaf may be freed); `x` itself when `dim` is None or ``n == 1``."""
+    if dim is None or n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"leaf of shape {tuple(x.shape)} does not split into "
+                         f"{n} blocks along dim {dim}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, index * size, size).clone()
+
+
+def gather_leaf(shards: list, dim: Optional[int]) -> torch.Tensor:
+    """The full leaf from its shards in data-index order (the reverse of
+    :func:`shard_leaf`); the first shard when `dim` is None."""
+    if dim is None:
+        return shards[0]
+    return torch.cat(list(shards), dim=dim)
+
+
+def shard_tree(tree, dims, mesh):
+    """This rank's shard of every leaf of `tree` (full leaves), cut along the
+    leaf's dim of `dims` (None: replicated) at ``mesh.data_index``; `tree`
+    as it is without a mesh or dims, or with one data rank."""
+    if mesh is None or dims is None or mesh.data == 1:
+        return tree
+    return tree_map(lambda x, d: shard_leaf(x, d, mesh.data_index, mesh.data),
+                    tree, dims)
+
+
+def tree_init(defs, seed: int = 0, *, device="cuda", dims=None, mesh=None):
+    """Initialize a param tree from PDs: one `torch.Generator` seeded with
+    `seed` on `device`, drawn leaf by leaf in sorted-key order.  With `dims`
+    and a `mesh` of ``data > 1`` (ZeRO) each full leaf is drawn and only this
+    rank's shard kept, so the bits do not depend on the data size.  The draws
+    differ from the JAX package's `jax.random` ones; tests that compare the
+    two packages take the JAX package's tree through :func:`params_from_jax`
+    or :func:`state_from_jax`."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return tree_map(lambda pd: init_one(pd, gen, device), defs)
+    if mesh is None or dims is None or mesh.data == 1:
+        return tree_map(lambda pd: init_one(pd, gen, device), defs)
+    return tree_map(lambda pd, d: shard_leaf(init_one(pd, gen, device), d,
+                                             mesh.data_index, mesh.data),
+                    defs, dims)
 
 
 def _to_tensor(a, device, dtype) -> torch.Tensor:
@@ -91,15 +133,18 @@ def params_from_jax(tree_of_numpy, device="cuda", dtype=None):
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree_of_numpy)
 
 
-def state_from_jax(state_of_numpy, device="cuda") -> dict:
+def state_from_jax(state_of_numpy, device="cuda", *, mesh=None,
+                   dims=None) -> dict:
     """The JAX package's train state ``{"params", "opt": {"m", "v", "step"}}``,
-    its leaves converted with ``np.asarray``, as the port's: the parameters
-    and moments as by :func:`params_from_jax` (dtypes kept), and ``step`` as
-    a 0-d int32 tensor."""
+    its full leaves converted with ``np.asarray``, as the port's: the
+    parameters and moments as by :func:`params_from_jax` (dtypes kept), and
+    ``step`` as a 0-d int32 tensor.  With `mesh` and `dims` (ZeRO: the train
+    bundle's ``dims``) the parameters and moments are this rank's shards."""
     opt = state_of_numpy["opt"]
-    return {"params": params_from_jax(state_of_numpy["params"], device),
-            "opt": {"m": params_from_jax(opt["m"], device),
-                    "v": params_from_jax(opt["v"], device),
+    part = lambda t: shard_tree(params_from_jax(t, device), dims, mesh)
+    return {"params": part(state_of_numpy["params"]),
+            "opt": {"m": part(opt["m"]),
+                    "v": part(opt["v"]),
                     "step": torch.as_tensor(np.array(opt["step"]),
                                             dtype=torch.int32,
                                             device=torch.device(device))}}

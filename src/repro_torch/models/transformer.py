@@ -4,7 +4,11 @@
 Parameters keep the JAX package's stacked ``(layers, ...)`` layout and names;
 the layers are a Python loop over that stack (the JAX package scans it).
 With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
-(recomputed in the backward, the JAX package's ``jax.checkpoint``).
+(recomputed in the backward, the JAX package's ``jax.checkpoint``).  The
+``gather`` hook of :meth:`Transformer.hidden_states` and
+:meth:`Transformer.loss` (ZeRO-3's all-gather at use) is applied to each
+layer's parameters inside that checkpoint, so the recompute gathers the
+layer again and the gathered layer is not kept between the passes.
 The MoE, vision-stub and encoder-decoder branches of the JAX model are not
 ported yet and raise :class:`NotImplementedError` naming the ROADMAP item.
 """
@@ -135,10 +139,15 @@ class Transformer:
         h = L.rms_norm(x, lp["ln2"], c.norm_eps)
         return x + L.swiglu(lp["ffn"], h)
 
-    def hidden_states(self, params: dict, batch: dict):
+    def _apply_block(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                     gather) -> torch.Tensor:
+        return self._block(gather(lp) if gather is not None else lp, x, positions)
+
+    def hidden_states(self, params: dict, batch: dict, *, gather=None):
         """Full-sequence forward to the final-norm hidden states.  Returns
         (x, aux_loss, n_prefix), as the JAX package's does (aux 0 and no
-        prefix in the dense family)."""
+        prefix in the dense family).  `gather(lp)` maps one layer's stored
+        parameters (ZeRO shards) to those it computes with."""
         c = self.cfg
         self._check_dense()
         tokens = batch["tokens"]
@@ -146,20 +155,22 @@ class Transformer:
         positions = torch.arange(x.shape[1], device=x.device)
         for lp in unstack_layers(params["blocks"], c.num_layers):
             if c.remat:
-                x = checkpoint(self._block, lp, x, positions, use_reentrant=False)
+                x = checkpoint(self._apply_block, lp, x, positions, gather,
+                               use_reentrant=False)
             else:
-                x = self._block(lp, x, positions)
+                x = self._apply_block(lp, x, positions, gather)
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, 0
 
-    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, params: dict, batch: dict, *,
+             gather=None) -> tuple[torch.Tensor, dict]:
         """batch["tokens"]: (B, S+1), teacher forcing.  Returns
-        (mean_local_loss, metrics)."""
+        (mean_local_loss, metrics).  `gather`: as in :meth:`hidden_states`."""
         tokens = batch["tokens"]
         inputs = {**batch, "tokens": tokens[:, :-1]}
         labels = tokens[:, 1:]
-        x, aux, _ = self.hidden_states(params, inputs)
+        x, aux, _ = self.hidden_states(params, inputs, gather=gather)
         sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels)
         loss = sum_loss / torch.clamp(count, min=1.0)
         return loss, {"ce_loss": loss, "aux_loss": aux, "tokens": count}

@@ -4,13 +4,17 @@ The port of the JAX package's ``runtime/step.py``.  PyTorch runs eagerly, so
 a bundle's ``fn`` is plain Python over the model and the collectives, not a
 jitted shard_map.
 
-* :func:`build_train_step`: one data-parallel training step across pods on a
-  :class:`repro_torch.launch.mesh.PodMesh` (one rank per pod, one data rank,
-  no tensor parallelism), modes ``flat`` and ``hierarchical``, in the
-  reference's sequence: f32 gradients after the backward, ``accum_grads``
-  with the WidePath sync, division by the data-parallel world, ``lr_at``,
-  ``adamw_update``, and the loss averaged over the pod group.  ZeRO needs
-  ``data > 1`` and is off; buckets, routes, site groups and local SGD are
+* :func:`build_train_step`: one data-parallel training step on a
+  :class:`repro_torch.launch.mesh.PodMesh` of ``pod`` x ``data`` ranks (no
+  tensor parallelism), modes ``flat``, ``hierarchical`` and ``gateway``, in
+  the reference's sequence: f32 gradients after the backward,
+  ``accum_grads`` with the WidePath sync, division by the data-parallel
+  world, ``lr_at``, ``adamw_update``, and the loss averaged over every
+  rank.  With ``zero1``, the hierarchical mode and ``data > 1`` it is
+  ZeRO-3: parameters and AdamW moments are stored scattered over the data
+  group, each layer's weights are all-gathered at use (:class:`AllGatherAtUse`,
+  whose backward reduce-scatters the gradients in f32), and only the 1/D
+  shards cross the pod axis.  Buckets, routes, site groups and local SGD are
   queued (ROADMAP.md queue A).
 * :func:`build_serve_step`: prefill / decode on one device, under
   ``torch.inference_mode()``.
@@ -18,24 +22,28 @@ jitted shard_map.
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import streams as st
 from repro_torch.core import telemetry as tel
 from repro_torch.core.autotune import autotune_path
-from repro_torch.core.collectives import queued, wide_allreduce
+from repro_torch.core.collectives import (all_gather_dim, psum_group, queued,
+                                          reduce_scatter_dim, streamed_psum,
+                                          wide_allreduce)
 from repro_torch.core.overlap import accum_grads, modeled_exposure
 from repro_torch.core.path import INTERPOD, WidePath
 from repro_torch.core.tree import flatten, tree_map, unflatten
 from repro_torch.launch.roofline import modeled_compute_window
 from repro_torch.models import build_model
-from repro_torch.models.param import leaf_bytes_pd, tree_fsdp_dims, tree_init
+from repro_torch.models.param import leaf_bytes_pd, tree_init
 from repro_torch.optim import adamw_update, init_opt_state, lr_at
+from repro_torch.sharding import (dp_axes_of, map_with_dims, strip_layer_dim,
+                                  tree_fsdp_dims)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -60,12 +68,88 @@ class StepBundle:
     device: torch.device
     cache_defs: Optional[dict] = None
     mesh: object = None                # train bundles: the PodMesh
+    dims: object = None                # per-leaf scatter dims of the stored state (ZeRO), else None
+    zero: bool = False
 
     def init_state(self, seed: int = 0) -> dict:
         """Parameters from `seed` and a fresh optimizer state, on the
-        bundle's device: the same bits on every rank."""
-        params = tree_init(self.param_defs, seed, device=self.device)
+        bundle's device: the same bits on every rank, and under ZeRO this
+        rank's shards of them."""
+        params = tree_init(self.param_defs, seed, device=self.device,
+                           dims=self.dims, mesh=self.mesh)
         return {"params": params, "opt": init_opt_state(params)}
+
+
+# ---------------------------------------------------------------------------
+# gather hook construction (ZeRO-3 all-gather-at-use)
+# ---------------------------------------------------------------------------
+
+class AllGatherAtUse(torch.autograd.Function):
+    """ZeRO-3 all-gather at use over the data group, whose backward
+    reduce-scatters the cotangent in f32 and rounds the shard back to the
+    parameter's dtype, as the reference's ``_ag_use`` / ``_ag_bwd`` do.
+
+    `stats` (a dict from :func:`inpod_stats`, or None) takes each call's
+    host-clock seconds, from a device sync as the step's ``sync_s``, and
+    one count."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group, stats):
+        ctx.dim, ctx.group, ctx.dtype, ctx.stats = dim, group, x.dtype, stats
+        with _timed(stats, "gather", x.device):
+            return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _timed(ctx.stats, "reduce_scatter", g.device):
+            rs = reduce_scatter_dim(g.float(), ctx.dim, ctx.group)
+        return rs.to(ctx.dtype), None, None, None
+
+
+def inpod_stats() -> dict:
+    """Zeroed host seconds and calls of the in-pod gathers (forward and
+    recompute) and reduce-scatters (backward)."""
+    return {"gather_s": 0.0, "gather_n": 0, "reduce_scatter_s": 0.0,
+            "reduce_scatter_n": 0}
+
+
+@contextmanager
+def _timed(stats, kind: str, dev: torch.device):
+    if stats is None:
+        yield
+        return
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    yield
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    stats[f"{kind}_s"] += time.perf_counter() - t0
+    stats[f"{kind}_n"] += 1
+
+
+def _make_gather(defs, dims_tree, zero: bool, group, stats=None):
+    """Returns (gather_layer, gather_top): gather_layer(lp) gathers one
+    layer's parameters inside the layer loop, gather_top(params) the leaves
+    outside it (embedding, head, final norm).  Identities without ZeRO.
+    `stats`: see :class:`AllGatherAtUse`."""
+    if not zero or group is None:
+        return None, lambda p: p
+    layer_dims = strip_layer_dim(dims_tree["blocks"])
+
+    def gather_leaf(x, d):
+        if d is None:
+            return x
+        return AllGatherAtUse.apply(x, d, group, stats)
+
+    def gather_layer(lp):
+        return map_with_dims(gather_leaf, lp, layer_dims)
+
+    def gather_top(params):
+        return {k: v if k == "blocks" else map_with_dims(gather_leaf, v, dims_tree[k])
+                for k, v in params.items()}
+
+    return gather_layer, gather_top
 
 
 # ---------------------------------------------------------------------------
@@ -76,25 +160,28 @@ def _param_bytes(defs) -> int:
     return sum(leaf_bytes_pd(pd) for pd in flatten(defs)[0])
 
 
-def _eff_grad_leaves(defs, dims):
+def _eff_grad_leaves(defs, dims, shard: int):
     """(leaves, scatter dims) of the cross-pod gradient payload: f32 on the
-    wire, shaped like the parameters (no ZeRO scatter with one data rank),
-    as ``meta`` tensors."""
-    pds = flatten(defs)[0]
-    dim_leaves = flatten(dims)[0]
-    leaves = [torch.empty(pd.shape, dtype=torch.float32, device="meta")
-              for pd in pds]
-    return leaves, [d if (d is not None and len(x.shape)) else None
-                    for x, d in zip(leaves, dim_leaves)]
+    wire, ZeRO leaves scattered over the data group as 1/shard slices,
+    exactly what the streamed psum sees, as ``meta`` tensors."""
+    eff_leaves, eff_dims = [], []
+    for pd, d in zip(flatten(defs)[0], flatten(dims)[0]):
+        shape = list(pd.shape)
+        if d is not None and shard > 1 and shape[d] % shard == 0:
+            shape[d] //= shard
+        eff_leaves.append(torch.empty(shape, dtype=torch.float32, device="meta"))
+        eff_dims.append(d if (d is not None and len(shape)) else None)
+    return eff_leaves, eff_dims
 
 
-def _note_path_plan(defs, dims, path: WidePath, world: int = 1, *,
+def _note_path_plan(defs, dims, path: WidePath, shard: int, world: int = 1, *,
                     window: float = 0.0, m_micro: int = 1) -> None:
     """Record the path's static gradient-sync plan into telemetry, as the
-    JAX package records it at build time: gradients are f32 on the wire;
+    JAX package records it at build time: gradients are f32 on the wire and,
+    under ZeRO, each scatterable leaf crosses pods as a 1/shard slice;
     `world` (the pod-axis size) feeds the modeled per-pod wire bytes; the
     modeled exposure against `window` lands in the overlap note."""
-    eff_leaves, eff_dims = _eff_grad_leaves(defs, dims)
+    eff_leaves, eff_dims = _eff_grad_leaves(defs, dims, shard)
     chunks = st.plan_chunks(eff_leaves, eff_dims, path.chunk_bytes)
     buckets = st.assign_streams(chunks, path.streams)
     tel.note_plan(path.key, **st.plan_summary(
@@ -117,49 +204,61 @@ def _detached(metrics: dict) -> dict:
 def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
                      local_only: bool = False) -> StepBundle:
     """The training step on `mesh`: ``fn(state, batch) -> (state, metrics)``
-    with `batch` this pod's rows ``{"tokens": (B_local, S+1)}`` on the
-    mesh's device.  The autotuner's warm start reads the modeled compute
-    window at the H100's peak (``launch/roofline.py``).
+    with `batch` this rank's rows ``{"tokens": (B_local, S+1)}`` on the
+    mesh's device and, under ZeRO (``bundle.zero``), `state` this rank's
+    shards.  The autotuner's warm start reads the modeled compute window at
+    the H100's peak (``launch/roofline.py``).
 
-    Metrics: loss (averaged over the pod group), lr, grad_norm, aux_loss,
-    and of the step's gradient sync: sync_s (host clock from a device sync
-    to the synced gradients), chunks (the per-chunk log of
-    :func:`repro_torch.core.collectives.streamed_psum`), wire_bytes (their
-    modeled per-pod link bytes) and sent_bytes."""
+    Metrics: loss (averaged over every rank), lr, grad_norm (the
+    reference's: under ZeRO the scattered leaves count once per pod,
+    ROADMAP.md §C 6), aux_loss, and of the step's gradient sync: sync_s
+    (host clock from a device sync to the synced gradients; under ZeRO the
+    in-pod reduce-scatter runs in the backward, before it), chunks (the
+    per-chunk log of :func:`repro_torch.core.collectives.streamed_psum`),
+    wire_bytes (their modeled per-pod link bytes) and sent_bytes; under
+    ZeRO also the in-pod stages' host seconds and calls (gather_s,
+    gather_n, reduce_scatter_s, reduce_scatter_n; :func:`inpod_stats`)."""
     if route is not None:
         raise queued("a multi-hop route", "facade, relays, files, checkpoints")
     if site_groups is not None:
-        raise queued("site groups", "gateway mode and site groups")
+        raise queued("site groups", "site groups")
     if local_only:
         raise queued("local SGD (local_steps > 1)", "topology, chaos and elasticity")
-    if rc.comm.mode == "gateway":
-        raise queued("the gateway (Forwarder) mode", "gateway mode and site groups")
-    if rc.comm.mode not in ("flat", "hierarchical"):
+    if rc.comm.mode not in ("flat", "hierarchical", "gateway"):
         raise ValueError(f"unknown comm mode {rc.comm.mode!r}")
     dev = resolve_device(mesh.device)
     model = build_model(rc.model)
     defs = model.param_defs()
-    # ZeRO needs data > 1, which the mesh refuses: every leaf is replicated
-    # in the pod, and these scatter dims only cut the cross-pod chunks
-    dims = tree_fsdp_dims(defs, mesh.data, mesh.model)
+    data_size = mesh.data
+    zero = bool(rc.train.zero1 and rc.comm.mode == "hierarchical"
+                and data_size > 1)
+    dims = tree_fsdp_dims(defs, data_size, mesh.model)
+    dims_or_none = dims if zero else tree_map(lambda d: None, dims)
+    dp = dp_axes_of(mesh)
+    dp_group = mesh.group_of(dp)
 
     path = WidePath(axis="pod", comm=rc.comm, link=INTERPOD, name="train")
     tc = rc.train
     m_micro = max(1, tc.microbatches)
+    shard = data_size if zero else 1
     pod_world = mesh.pod
     window = modeled_compute_window(rc.model, rc.shape, n_chips=mesh.n_ranks,
                                     microbatches=m_micro)
-    path = autotune_path(path, _param_bytes(defs), world=pod_world,
+    path = autotune_path(path, _param_bytes(defs) // shard, world=pod_world,
                          compute_window=window)
     if rc.comm.mode != "flat":
-        _note_path_plan(defs, dims, path, pod_world, window=window,
+        _note_path_plan(defs, dims, path, shard, pod_world, window=window,
                         m_micro=m_micro)
+    inpod = inpod_stats()
+    gather_layer, gather_top = _make_gather(defs, dims, zero, mesh.data_group,
+                                            inpod)
     dp_world = mesh.pod * mesh.data
 
     def grad_fn(params, mb):
         leaves, td = flatten(params)
         ps = [p.detach().requires_grad_(True) for p in leaves]
-        loss, metrics = model.loss(unflatten(td, ps), mb)
+        loss, metrics = model.loss(gather_top(unflatten(td, ps)), mb,
+                                   gather=gather_layer)
         grads = torch.autograd.grad(loss, ps)
         # f32 gradients from here on, as in the reference: f32 accumulation
         # and an f32 wire for every comm mode
@@ -175,12 +274,22 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
         mbs = [{**batch, "tokens": t} for t in tokens.chunk(m_micro, dim=0)]
         log: list = []
         sync_s = [0.0]
+        inpod.update(inpod_stats())
 
         def sync(grads):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            out = wide_allreduce(grads, path, mesh, dims=dims, log=log)
+            if zero:
+                # the shards' in-pod reduction ran in the backward; the
+                # replicated leaves still need theirs, then only the 1/D
+                # shards cross the pod axis
+                grads = map_with_dims(
+                    lambda g, d: psum_group(g, mesh.data_group)
+                    if d is None else g, grads, dims)
+                out = streamed_psum(grads, path, mesh, dims=dims, log=log)
+            else:
+                out = wide_allreduce(grads, path, mesh, dims=dims, log=log)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             sync_s[0] += time.perf_counter() - t0
@@ -190,21 +299,22 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
                                            overlap=m_micro > 1)
         grads = tree_map(lambda g: g.div_(dp_world), grads)
         lr = lr_at(state["opt"]["step"], tc, device=dev)
-        new_params, new_opt, stats = adamw_update(grads, state["opt"], params,
-                                                  tc, lr)
-        if mesh.pod_group is not None:
+        new_params, new_opt, stats = adamw_update(
+            grads, state["opt"], params, tc, lr, dims=dims_or_none,
+            group=dp_group if zero else None)
+        if mesh.world_group is not None:
             lh = loss.detach().float().reshape(1).cpu()
-            dist.all_reduce(lh, op=dist.ReduceOp.SUM, group=mesh.pod_group)
-            loss = (lh / dp_world).reshape(()).to(dev)
+            loss = (psum_group(lh, mesh.world_group) / dp_world).reshape(()).to(dev)
         out = {"loss": loss, "lr": lr, **stats,
                "aux_loss": metrics.get("aux_loss"),
                "sync_s": sync_s[0], "chunks": log,
                "wire_bytes": sum(c["wire_bytes"] for c in log),
-               "sent_bytes": sum(c["sent_bytes"] for c in log)}
+               "sent_bytes": sum(c["sent_bytes"] for c in log), **inpod}
         return {"params": new_params, "opt": new_opt}, out
 
     return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
-                      device=dev, mesh=mesh)
+                      device=dev, mesh=mesh, dims=dims if zero else None,
+                      zero=zero)
 
 
 def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,

@@ -8,8 +8,9 @@ local SGD are not ported yet and raise ``NotImplementedError`` naming their
 ROADMAP item.
 
 With ``check_replicas`` the loop holds the data-parallel invariant after
-every step: every pod rank's parameters must be bit-identical, compared by a
-checksum of their bits across the pod group.
+every step, compared by a checksum of the parameters' bits: without ZeRO
+every rank's parameters must be bit-identical; under ZeRO the ranks of each
+pod group (one data index, one rank per pod) must hold bit-identical shards.
 """
 from __future__ import annotations
 
@@ -119,31 +120,40 @@ class Trainer:
         self._fresh = True
 
     def init_or_restore(self, seed: int = 0) -> str:
+        """Fresh state from `seed` (under ZeRO, this rank's shards of it)."""
         self.state = self.bundle.init_state(seed)
         return "initialized"
 
     def _place_batch(self, batch_np) -> dict:
-        """This pod's rows of the global batch: rows [r*gb/P, (r+1)*gb/P)
-        for pod r, as the reference's ``P(dp)`` sharding gives them."""
+        """This rank's rows of the global batch: with D data ranks, rank
+        (p, d) takes rows [(p*D + d)*lb, (p*D + d + 1)*lb), lb = gb/(P*D),
+        as the reference's ``P(("pod", "data"))`` sharding gives them."""
         toks = batch_np["tokens"] if isinstance(batch_np, dict) else batch_np
-        P, r = self.mesh.pod, self.mesh.pod_index
-        if toks.shape[0] % P:
+        m = self.mesh
+        n = m.pod * m.data
+        if toks.shape[0] % n:
             raise ValueError(f"global batch {toks.shape[0]} does not split over "
-                             f"{P} pods")
-        lb = toks.shape[0] // P
+                             f"{m.pod} pods x {m.data} data ranks")
+        lb = toks.shape[0] // n
+        r = m.pod_index * m.data + m.data_index
         rows = np.ascontiguousarray(toks[r * lb:(r + 1) * lb])
         return {"tokens": torch.as_tensor(rows, dtype=torch.int64,
                                           device=self.bundle.device)}
 
     def _replicas_agree(self) -> int:
+        """This rank's checksum, after checking it against those of the ranks
+        that must hold the same bits: the pod group under ZeRO (the same
+        shard), the world otherwise."""
         c = replica_checksum(self.state["params"])
-        if self.mesh.pod_group is not None:
+        group = self.mesh.pod_group if self.bundle.zero else self.mesh.world_group
+        if group is not None:
             mine = torch.tensor([c], dtype=torch.int64)
-            every = [torch.zeros(1, dtype=torch.int64) for _ in range(self.mesh.pod)]
-            dist.all_gather(every, mine, group=self.mesh.pod_group)
+            every = [torch.zeros(1, dtype=torch.int64)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(every, mine, group=group)
             seen = [int(t) for t in every]
             if len(set(seen)) != 1:
-                raise ReplicaDivergence(f"step {self.step}: pod ranks' parameter "
+                raise ReplicaDivergence(f"step {self.step}: replicas' parameter "
                                         f"checksums differ: {seen}")
         return c
 
@@ -173,6 +183,8 @@ class Trainer:
                    "grad_norm": float(metrics["grad_norm"]),
                    "lr": float(metrics["lr"]), "time_s": dt,
                    "straggler": straggler, "sync_s": metrics["sync_s"],
+                   "gather_s": metrics["gather_s"],
+                   "reduce_scatter_s": metrics["reduce_scatter_s"],
                    "wire_bytes": metrics["wire_bytes"],
                    "sent_bytes": metrics["sent_bytes"],
                    "payload_bytes": sum(c["payload_bytes"] for c in metrics["chunks"]),

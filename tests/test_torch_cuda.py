@@ -325,3 +325,46 @@ def test_rmsnorm_function_keeps_dtypes_on_the_card(cuda):
     # the same f32 arithmetic, reduced in another order on the card
     torch.testing.assert_close(x.grad.cpu().float(), dx.float(), atol=1e-3, rtol=2 ** -7)
     torch.testing.assert_close(w.grad.cpu(), dw, atol=1e-3, rtol=1e-5)
+
+
+def _gather_rank(rank: int, init: str, out: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.core.collectives import psum_group, reduce_scatter_dim
+    from repro_torch.runtime.step import AllGatherAtUse
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+    try:
+        dev = torch.device("cuda", 0)
+        group = dist.new_group([0, 1], backend="gloo")
+        x = _rnd(dev, 6, 40, 8, seed=20 + rank).requires_grad_(True)
+        ct = _rnd(dev, 6, 80, 8, seed=30 + rank, dtype=torch.float32)
+        y = AllGatherAtUse.apply(x, 1, group, None)
+        (dx,) = torch.autograd.grad(y, x, ct.to(y.dtype))
+        rs = reduce_scatter_dim(ct, 0, group)
+        ps = psum_group(ct, group)
+        assert y.device == dx.device == rs.device == ps.device == dev
+        torch.save({k: t.detach().cpu() for k, t in
+                    (("x", x), ("ct", ct), ("y", y), ("dx", dx), ("rs", rs), ("ps", ps))},
+                   f"{out}/gather_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_zero_gather_and_reduce_scatter_round_trip_on_the_card(cuda, tmp_path):
+    """The ZeRO-3 gather at use and the in-pod stages on CUDA tensors: two
+    ranks on the one card, gloo through pinned host copies.  The gather tiles
+    the two shards; its backward is the f32 reduce-scatter of the cotangent
+    rounded to the shard's bf16; the sums are the rank-order f32 sums."""
+    torch.multiprocessing.start_processes(
+        _gather_rank, args=(f"file://{tmp_path}/rdv", str(tmp_path)), nprocs=2,
+        join=True, start_method="spawn")
+    r = [torch.load(tmp_path / f"gather_rank{i}.pt") for i in range(2)]
+    full = torch.cat([r[0]["x"], r[1]["x"]], dim=1)
+    bf = [t["ct"].to(torch.bfloat16).float() for t in r]
+    total = r[0]["ct"] + r[1]["ct"]
+    for i in range(2):
+        assert torch.equal(r[i]["y"], full)
+        want_dx = (bf[0] + bf[1]).chunk(2, dim=1)[i].to(torch.bfloat16)
+        assert r[i]["dx"].dtype == torch.bfloat16 and torch.equal(r[i]["dx"], want_dx)
+        assert torch.equal(r[i]["rs"], total.chunk(2, dim=0)[i])
+        assert torch.equal(r[i]["ps"], total)
