@@ -49,7 +49,25 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             reduce-scattered in the backward, the 1/2 shards across pods),
             one 4096-token sequence a rank, 3 steps with no codec and with
             int8; the same checks, each data index's shards bit-identical
-            across pods, and the peak memory of all four ranks.
+            across pods, and the peak memory of all four ranks;
+9. buckets  the zero phase's mesh with ``CommConfig.bucket_mb = 64`` (given
+            to the launcher as its ``comm`` keyword): no codec runs the
+            backward flush (each bucket's sync from a hook in the backward),
+            its step-1 loss bit-identical to the zero phase's and steps 2-3
+            within 1e-3 of it; int8 runs the tail mode, every step's
+            parameter checksums equal to the zero phase's int8 run; every
+            bucket's chunks and wire bytes its ``train/bkt{i}`` plan's;
+            step, per-bucket sync, in-pod gather and reduce-scatter ms and
+            peak memory (runs the zero phase first when it is not asked for);
+10. ring    full-width qwen1.5-0.5b on 3 pods x 1 data rank (three processes
+            on the card), ``algo="ring"`` with int8, ``"ring2"`` with int8
+            and ``"ring"`` with no codec, 3 steps each: the three replicas
+            bit-identical after every step, wire bytes the plan's (2(P-1)/P
+            of the wire), quant P and dequant 2P-1 times per chunk per
+            direction per step; step and sync ms, the bytes sent against
+            the psum path's modeled wire, and the int8 wire blocks used.  Then quant
+            and dequant against their plain versions and timed at the wire
+            block shape the int8 ring run used most.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -71,7 +89,8 @@ HBM_BPS = 3.35e12            # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
-PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train", "zero")
+PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train", "zero",
+          "buckets", "ring")
 CODECS = ("none", "bf16", "int8")
 
 
@@ -875,45 +894,103 @@ ZERO_ARGS = ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--global-batch", 
              "--steps", "3", "--pods", "2", "--ranks", "4", "--mode", "hierarchical",
              "--check-replicas"]
 ZERO_CODECS = ("none", "int8")
+BUCKET_MB = 64.0     # a point of the reference's BUCKET_GRID_MB
+FLUSH_LOSS_TOL = 1e-3
+# 3 pods x 1 data rank: one sequence a pod
+RING_ARGS = ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--global-batch", "3",
+             "--steps", "3", "--pods", "3", "--mode", "hierarchical",
+             "--check-replicas"]
+RING_RUNS = (("ring", "int8"), ("ring2", "int8"), ("ring", "none"))
 
 
-def _train_run(codec: str, argv: list, out_dir: str, label: str) -> dict:
-    """One ``launch.train.main`` run: check every rank's report and return
-    the run's numbers.  Checks: each rank noted the plan; the flash forward
-    and backward and rmsnorm launched on every rank, quant and dequant once
-    per chunk per step with int8 and never without; every step's loss finite
-    and its chunks, payload and wire bytes the plan's; the replicas' checksums
-    equal after every step (the launcher's ``--check-replicas`` fails first
-    if they differ): every rank's without ZeRO, under ZeRO the two pods'
-    shards of each data index (and the two data indices' shards differ)."""
+def ring_calls(sizes: list, world: int, algo: str) -> tuple[int, dict]:
+    """(directions, {(rows, padded extent, block): quant calls}) of one
+    step's ring over chunks of [extent, f32 bytes]: ring2 halves a chunk of
+    extent >= 2 into two directions; each direction pads its extent to a
+    multiple of the world, and quantizes `world` segments of it, each moved
+    last and padded to its wire block min(256, m)."""
+    dirs, calls = 0, {}
+    for n, nbytes in sizes:
+        rows = nbytes // 4 // max(n, 1)
+        parts = [n // 2, n - n // 2] if algo == "ring2" and n >= 2 else [n]
+        for e in parts:
+            dirs += 1
+            m = (e + (-e) % world) // world
+            block = max(1, min(256, m))
+            key = (rows, m + (-m) % block, block)
+            calls[key] = calls.get(key, 0) + world
+    return dirs, calls
+
+
+def _train_run(codec: str, argv: list, out_dir: str, label: str,
+               comm=None) -> dict:
+    """One ``launch.train.main`` run (`comm`: the launcher's CommConfig
+    keyword): check every rank's report and return the run's numbers.
+    Checks: each rank noted the plan (and each bucket's); the flash forward
+    and backward and rmsnorm launched on every rank; with int8, quant and
+    dequant once per chunk per step on the gather path, and on a ring P and
+    2P-1 times per chunk per direction, never without int8; every step's
+    loss finite and its chunks, payload and wire bytes the plan's (each
+    bucket's the bucket's plan's); the replicas' checksums equal after every
+    step (the launcher's ``--check-replicas`` fails first if they differ):
+    every rank's without ZeRO, under ZeRO the pods' shards of each data
+    index (and the data indices' shards differ)."""
     import numpy as np
     from repro_torch.launch import train as launcher
     rep = os.path.join(out_dir, f"{label}_{codec}")
     t0 = time.perf_counter()
-    launcher.main(argv + ["--compress", codec, "--report", rep])
+    launcher.main(argv + ["--compress", codec, "--report", rep], comm=comm)
     wall = time.perf_counter() - t0
     n = json.load(open(f"{rep}.rank0.json"))["ranks"]
     reps = [json.load(open(f"{rep}.rank{r}.json")) for r in range(n)]
     r0 = reps[0]
-    plan = r0["plan"]
+    plan, bplans = r0["plan"], r0["bucket_plans"]
+    algo, pods = r0["algo"], r0["pods"]
+    # a bucketed step sends the buckets' chunks: a slice of a stacked leaf
+    # is cut as its whole leaf is along the scatter dim
+    step_chunks = sum(b["n_chunks"] for b in bplans) if bplans else plan["n_chunks"]
+    step_wire = sum(b["wire_bytes"] for b in bplans) if bplans else plan["wire_bytes"]
     tag = f"{label} {codec}"
+    if algo != "psum":
+        factor = {"none": 1.0, "bf16": 0.5, "int8": 0.25}[codec]
+        check(plan["wire_bytes"] == round(2 * (pods - 1) / pods * factor
+                                          * plan["payload_bytes"]),
+              f"{tag}: the {algo} plan's wire is 2(P-1)/P of the codec's bytes")
     for r, rp in enumerate(reps):
-        check(rp["plan"] == plan, f"{tag}: rank {r} noted the same plan")
+        check(rp["plan"] == plan and rp["bucket_plans"] == bplans,
+              f"{tag}: rank {r} noted the same plans")
         la = rp["launches"]
         check(la["flash_attention"] > 0 and la["flash_attention_bwd"] > 0
               and la["rmsnorm"] > 0, f"{tag} rank {r}: kernels launched {la}")
-        want_q = plan["n_chunks"] * len(rp["history"]) if codec == "int8" else 0
-        check(la["quant_int8"] == la["dequant_int8"] == want_q,
-              f"{tag} rank {r}: quant/dequant once per chunk per step "
-              f"({want_q}), got {la}")
+        want_q = want_dq = 0
+        if codec == "int8":
+            for h in rp["history"]:
+                if algo == "psum":
+                    want_q += h["n_chunks"]
+                    want_dq += h["n_chunks"]
+                else:
+                    dirs = ring_calls(h["chunk_sizes"], pods, algo)[0]
+                    want_q += pods * dirs
+                    want_dq += (2 * pods - 1) * dirs
+        check(la["quant_int8"] == want_q and la["dequant_int8"] == want_dq,
+              f"{tag} rank {r}: quant {want_q} and dequant {want_dq} launches "
+              f"expected, got {la}")
         for h in rp["history"]:
             check(math.isfinite(h["loss"]), f"{tag} rank {r}: finite loss {h}")
-            check(h["n_chunks"] == plan["n_chunks"]
+            check(h["n_chunks"] == step_chunks
                   and h["payload_bytes"] == plan["payload_bytes"]
-                  and round(h["wire_bytes"]) == plan["wire_bytes"],
+                  and round(h["wire_bytes"]) == step_wire,
                   f"{tag} rank {r} step {h['step']}: chunks {h['n_chunks']}, "
                   f"payload {h['payload_bytes']}, wire {h['wire_bytes']} "
-                  f"against the plan {plan}")
+                  f"against the plan {plan} and buckets {bplans}")
+            check(h["n_buckets"] == len(bplans),
+                  f"{tag} rank {r}: {h['n_buckets']} buckets, plan {len(bplans)}")
+            for b, bp in zip(h["buckets"], bplans):
+                check(b["n_chunks"] == bp["n_chunks"]
+                      and round(b["wire_bytes"]) == bp["wire_bytes"]
+                      and b["payload_bytes"] == bp["payload_bytes"],
+                      f"{tag} rank {r} step {h['step']} bucket {b['index']}: "
+                      f"{b} against its plan {bp}")
     sums = {(rp["pod_index"], rp["data_index"]): [h["checksum"] for h in rp["history"]]
             for rp in reps}
     data = r0["data"]
@@ -929,7 +1006,10 @@ def _train_run(codec: str, argv: list, out_dir: str, label: str) -> dict:
     step_s = float(np.median([x["time_s"] for x in h]))
     tokens = r0["seq_len"] * r0["global_batch"] // r0["pods"]
     out = {
-        "pods": r0["pods"], "data": data, "zero": r0["zero"],
+        "pods": r0["pods"], "data": data, "zero": r0["zero"], "algo": algo,
+        "bucket_mb": r0["bucket_mb"], "bucket_mode": r0["history"][0]["bucket_mode"],
+        "n_buckets": len(bplans),
+        "checksums_by_rank": [[x["checksum"] for x in rp["history"]] for rp in reps],
         "wall_s_with_spawn": wall, "losses": [x["loss"] for x in r0["history"]],
         "grad_norms": [x["grad_norm"] for x in r0["history"]],
         "step_ms_median_steps_2_3": 1e3 * step_s,
@@ -944,13 +1024,20 @@ def _train_run(codec: str, argv: list, out_dir: str, label: str) -> dict:
         "sync_ms": [1e3 * x["sync_s"] for x in r0["history"]],
         "wire_bytes_per_step": r0["history"][-1]["wire_bytes"],
         "sent_bytes_per_step": r0["history"][-1]["sent_bytes"],
-        "n_chunks": plan["n_chunks"], "streams": r0["streams"],
+        "n_chunks": step_chunks, "streams": r0["streams"],
         "chunk_mb": r0["chunk_mb"], "plan_wire_bytes": plan["wire_bytes"],
         "payload_bytes": plan["payload_bytes"],
         "peak_mem_gb_per_rank": [(rp["peak_mem_bytes"] or 0) / 1e9 for rp in reps],
         "launches_rank0": r0["launches"], "device": r0["device_name"],
+        "chunk_sizes_step1": r0["history"][0]["chunk_sizes"],
         "params": r0["params"], "seq_len": r0["seq_len"],
         "global_batch": r0["global_batch"]}
+    if bplans:
+        out["bucket_sync_ms_median_steps_2_3"] = [
+            1e3 * float(np.median([x["buckets"][i]["sync_s"] for x in h]))
+            for i in range(len(bplans))]
+        out["bucket_bounds"] = [[b["lo"], b["hi"]] for b in r0["history"][0]["buckets"]]
+        out["bucket_payload_bytes"] = [b["payload_bytes"] for b in bplans]
     if r0["profile"] is not None:
         p = r0["profile"]
         buckets: dict = {}
@@ -994,6 +1081,114 @@ def phase_zero(torch, out_dir: str) -> dict:
         runs[codec] = _train_run(codec, ZERO_ARGS, out_dir, "zero")
         emit({"phase": "zero", "mesh": "2x2", "codec": codec, **runs[codec]})
     return runs
+
+
+def phase_buckets(torch, out_dir: str, zero: dict) -> dict:
+    """The zero phase's launcher and mesh with ``bucket_mb = 64``: no codec
+    runs the backward flush, int8 the tail mode (:func:`_train_run` checks
+    every run, each bucket against its plan).  Held to the zero phase's runs
+    (`zero`): the flush run's step-1 loss bit-identical, steps 2-3 within
+    FLUSH_LOSS_TOL (the hook rounds each synced block gradient to bf16 once
+    more, as the reference's does); the tail run's parameter checksums equal
+    at every step on every rank."""
+    from repro_torch.configs import CommConfig
+    runs = {}
+    for codec in ZERO_CODECS:
+        comm = CommConfig(mode="hierarchical", compress=codec, bucket_mb=BUCKET_MB)
+        r = _train_run(codec, ZERO_ARGS, out_dir, "buckets", comm=comm)
+        z = zero[codec]
+        mode = "flush" if codec == "none" else "tail"
+        check(r["bucket_mode"] == mode and r["n_buckets"] >= 3,
+              f"buckets {codec}: {r['n_buckets']} buckets in mode {r['bucket_mode']}")
+        gaps = [abs(a - b) for a, b in zip(r["losses"], z["losses"])]
+        if codec == "none":
+            check(r["losses"][0] == z["losses"][0],
+                  f"buckets none: step-1 loss {r['losses'][0]} is the zero run's "
+                  f"{z['losses'][0]}")
+            check(all(g <= FLUSH_LOSS_TOL for g in gaps),
+                  f"buckets none: losses {r['losses']} within {FLUSH_LOSS_TOL} "
+                  f"of the zero run's {z['losses']}")
+        else:
+            check(r["checksums_by_rank"] == z["checksums_by_rank"],
+                  "buckets int8: tail-mode parameters bit-identical to the zero "
+                  "phase's unbucketed int8 run at every step")
+        r["loss_gap_to_zero_run"] = gaps
+        runs[codec] = r
+        emit({"phase": "buckets", "mesh": "2x2", "codec": codec, "mode": mode,
+              **{k: v for k, v in r.items() if k != "chunk_sizes_step1"}})
+    return runs
+
+
+def phase_ring(torch, out_dir: str) -> dict:
+    """The launcher on 3 pods x 1 data rank (three processes on the card),
+    ring with int8, ring2 with int8 and ring with no codec, 3 steps each
+    (:func:`_train_run` checks every run: replicas bit-identical, wire bytes
+    the plan's, quant and dequant P and 2P-1 times per chunk per direction).
+    Reports the bytes each rank sent against the psum path's modeled
+    per-pod wire (gather-based with a codec: (P-1) times the codec's bytes)
+    and the int8 wire blocks."""
+    from repro_torch.configs import CommConfig
+    from repro_torch.core.ring import wire_bytes_per_pod
+    runs = {}
+    for algo, codec in RING_RUNS:
+        comm = CommConfig(mode="hierarchical", compress=codec, algo=algo)
+        r = _train_run(codec, RING_ARGS, out_dir, f"ring_{algo}", comm=comm)
+        pods = r["pods"]
+        r["psum_path_wire_bytes_per_step"] = round(wire_bytes_per_pod(
+            r["payload_bytes"], pods, algo="psum", compress=codec))
+        dirs, calls = ring_calls(r["chunk_sizes_step1"], pods, algo)
+        r["directions_per_step"] = dirs
+        if codec == "int8":
+            blocks: dict = {}
+            for (_, _, block), n in calls.items():
+                blocks[block] = blocks.get(block, 0) + n
+            r["wire_blocks_quant_calls"] = dict(sorted(blocks.items()))
+            top = max(calls.items(), key=lambda kv: (kv[1], kv[0][0] * kv[0][1]))
+            r["top_wire_shape"] = {"rows": top[0][0], "n": top[0][1],
+                                   "block": top[0][2], "quant_calls_per_step": top[1]}
+        runs[f"{algo}_{codec}"] = r
+        emit({"phase": "ring", "mesh": "3x1", "algo": algo, "codec": codec,
+              **{k: v for k, v in r.items() if k != "chunk_sizes_step1"}})
+    return runs
+
+
+def phase_kernels_ring(torch, dev, shape: dict) -> dict:
+    """quant (f32 in, as the ring's partial sums) and dequant (to f32) at the
+    wire-block shape the int8 ring run used most, against their plain
+    versions (exact) and timed; bound: each input read once and each output
+    written once, at the memory rate."""
+    from repro_torch.kernels import quant, ref
+    R, n, block = shape["rows"], shape["n"], shape["block"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    nbytes = 4 * R * n + R * n + 4 * (R * n // block)
+    k = sets_for(nbytes)
+    xs = [torch.randn((R, n), generator=g, device=dev) * 1e-3 for _ in range(k)]
+    q, s = quant.quant_int8_2d(xs[0], block=block)
+    qr, sr = ref.quant_int8_ref(xs[0], block)
+    check(torch.equal(q, qr) and torch.equal(s, sr), f"quant ring wire {shape} exact")
+    y = quant.dequant_int8_2d(q, s, block=block, dtype=torch.float32)
+    check(torch.equal(y, ref.dequant_int8_ref(q, s, block, torch.float32)),
+          f"dequant ring wire {shape} exact")
+    qs = [quant.quant_int8_2d(x, block=block) for x in xs]
+    paths = {"quant": ["block", "warp"][quant.quant_path(block, xs[0].data_ptr())],
+             "dequant": ["block", "vector"][quant.dequant_path(block, q.data_ptr())]}
+    rows = {}
+    for name, fn, plain, ops_n in (
+            ("quant_int8", lambda i: quant.quant_int8_2d(xs[i], block=block),
+             lambda i: ref.quant_int8_ref(xs[i], block), 3 * R * n),
+            ("dequant_int8", lambda i: quant.dequant_int8_2d(*qs[i], block=block,
+                                                             dtype=torch.float32),
+             lambda i: ref.dequant_int8_ref(*qs[i], block, torch.float32), R * n)):
+        e = {"on_path": "ring", "shape": [R, n], "block": block,
+             "path": paths[name.split("_")[0]], "max_abs_err": 0.0, "exact": True,
+             "ms": cuda_ms(torch, fn, k, 50), "plain_ms": cuda_ms(torch, plain, k, 5),
+             "library_ms": None}
+        e["bound_ms"], e["bound_by"] = bound(nbytes, ops_n, PEAK_F32)
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        rows[name] = e
+    del xs, qs
+    torch.cuda.synchronize()
+    return rows
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -1085,28 +1280,43 @@ def main() -> int:
                   **phase_profile(torch, dev, cfg, params)})
         del params
         torch.cuda.empty_cache()
-    train, zero = {}, {}
-    if "train" in phases or "zero" in phases:
+    train, zero, bkt, ring = {}, {}, {}, {}
+    if any(p in phases for p in ("train", "zero", "buckets", "ring")):
         import tempfile
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
             if "train" in phases:
                 train = phase_train(torch, d)
-            if "zero" in phases:
+            if "zero" in phases or "buckets" in phases:
                 zero = phase_zero(torch, d)
+            if "buckets" in phases:
+                bkt = phase_buckets(torch, d, zero)
+            if "ring" in phases:
+                ring = phase_ring(torch, d)
+    if krows and ring:
+        wire = phase_kernels_ring(torch, dev, ring["ring_int8"]["top_wire_shape"])
+        for name, row in wire.items():
+            krows[name].append(row)
+        emit({"phase": "kernels_ring_wire", "card": smi, **wire})
     if krows:
         line = []
         # launches on the ZeRO training path (int8 run, rank 0: all five
         # kernels); the 2-pod run's and the serving path's beside them
         on_path = zero.get("int8", {}).get("launches_rank0", {})
         on_pods = train.get("int8", {}).get("launches_rank0", {})
+        on_bkt = bkt.get("int8", {}).get("launches_rank0", {})
+        on_ring = ring.get("ring_int8", {}).get("launches_rank0", {})
         for name, source, replaces, tol in KERNELS:
             # the row at the training path's shape
             main_row = next(r for r in krows[name] if r.get("on_path") == "train")
+            ring_row = next((r for r in krows[name] if r.get("on_path") == "ring"), None)
             line.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces,
                          "launches": on_path.get(name, 0),
                          "launches_pods_2x1": on_pods.get(name, 0),
+                         "launches_buckets_2x2": on_bkt.get(name, 0),
+                         "launches_ring_3x1": on_ring.get(name, 0),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
+                         **({"ring_wire_block": ring_row} if ring_row else {}),
                          "max_abs_err": main_row["max_abs_err"],
                          "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                          "bound_ms": main_row["bound_ms"],

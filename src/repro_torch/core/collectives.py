@@ -1,7 +1,7 @@
 """Wide-area collectives: the paper's transfer engine on ``torch.distributed``
 process groups.
 
-The port of the JAX package's ``core/collectives.py`` for ``algo="psum"``.
+The port of the JAX package's ``core/collectives.py`` (``site_groups`` aside).
 The axes of the mesh (:class:`repro_torch.launch.mesh.PodMesh`) are process
 groups: the pod group over this data index's pod ranks (the WAN axis), the
 data group over this pod's ranks, and the world.  Each WidePath stream is a
@@ -24,9 +24,14 @@ The in-pod stages (:func:`all_gather_dim`, :func:`reduce_scatter_dim`,
 (``core/compress.py``), and sum in rank order: every rank of a group gets
 the same bits, and a two-way sum is the reference's bit for bit.
 
+Within the cross-pod stage each chunk's all-reduce is the algorithm
+``CommConfig.algo`` selects: "psum" is one collective per chunk (gather-based
+when compressed: per-pod wire bytes grow linearly in pod count), "ring" and
+"ring2" the bandwidth-optimal point-to-point rings of
+:mod:`repro_torch.core.ring` (int8 requantized per hop; ring2 bidirectional).
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``algo="ring"``/``"ring2"``, ``site_groups``, ``subgroup`` and
-multi-hop paths.
+item: ``site_groups``, ``subgroup`` and multi-hop paths.
 """
 from __future__ import annotations
 
@@ -34,14 +39,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import compress as comp
+from repro_torch.core import ring as rg
 from repro_torch.core import streams as st
 from repro_torch.core import telemetry as tel
 from repro_torch.core.path import WidePath
-from repro_torch.core.ring import wire_bytes_per_pod
+from repro_torch.core.ring import ALGOS, wire_bytes_per_pod
 from repro_torch.core.tree import flatten, unflatten
-
-ALGOS = ("psum", "ring", "ring2")
-
 
 def queued(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -57,21 +60,22 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     `path.streams` channels, each channel a process group of its own, and
     pacing (MPW_setPacingRate) lets only ``ceil(streams * pacing)`` channels
     run at once.  Every chunk's collective is issued with ``async_op=True``
-    in stream order; a wave is waited for before the next one starts.  The
-    traffic plan is noted in telemetry as the JAX package notes it.
+    in stream order; a wave is waited for before the next one starts.  With
+    ``algo="ring"``/``"ring2"`` each chunk is a ring all-reduce
+    (:func:`repro_torch.core.ring.allreduce_steps`) on its stream's group,
+    and the rings of a wave advance hop by hop together.  The traffic plan is
+    noted in telemetry as the JAX package notes it.
 
     `chunks` overrides the planner.  `log`, a list, receives one dict per
     chunk: leaf, dim, start, size, stream, payload_bytes (f32 bytes of the
     chunk), wire_bytes (the modeled per-pod link bytes of the chunk that was
-    sent, ``wire_bytes_per_pod`` of its bytes) and sent_bytes (what this rank
-    handed to the group: int8 payload plus scales and block padding, or
-    bf16 / f32 bytes).  With one pod (no pod group) the tree is returned as
-    it is."""
+    sent, ``wire_bytes_per_pod`` of its bytes under `algo`) and sent_bytes
+    (what this rank handed to the group, summed over a ring's hops: int8
+    payload plus scales and block padding, or bf16 / f32 bytes).  With one
+    pod (no pod group) the tree is returned as it is."""
     algo = path.comm.algo
     if algo not in ALGOS:
         raise ValueError(f"unknown comm algo {algo!r}; have {ALGOS}")
-    if algo != "psum":
-        raise queued(f"algo={algo!r}", "ring and ring2 collectives")
     if site_groups is not None or subgroup:
         raise queued("site groups and gateway subgroups",
                      "site groups")
@@ -101,14 +105,21 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
 
     done: dict[int, list] = {i: [] for i in range(len(leaves))}
     for w0 in range(0, len(buckets), per_wave):
-        issued = []
-        for s in range(w0, min(w0 + per_wave, len(buckets))):
-            for c in buckets[s]:
-                x = st.slice_chunk(leaves[c.leaf], c)
-                issued.append((c, s, x, comp.reduce_start(x, c.dim, groups[s],
-                                                          compress)))
-        for c, s, x, pending in issued:   # the wave lands before the next starts
-            done[c.leaf].append((c, pending.finish()))
+        wave = [(c, s, st.slice_chunk(leaves[c.leaf], c))
+                for s in range(w0, min(w0 + per_wave, len(buckets)))
+                for c in buckets[s]]
+        if algo == "psum":
+            issued = [comp.reduce_start(x, c.dim, groups[s], compress)
+                      for c, s, x in wave]
+            landed = [(p.finish(), p.sent_bytes) for p in issued]
+        else:
+            landed = rg.drive(rg.lockstep([
+                rg.allreduce_steps(x, c.dim, groups[s], compress=compress,
+                                   bidirectional=algo == "ring2", tag=2 * k)
+                for k, (c, s, x) in enumerate(wave)]))
+        # the wave has landed before the next one starts
+        for (c, s, x), (r, sent) in zip(wave, landed):
+            done[c.leaf].append((c, r))
             if log is not None:
                 log.append({"leaf": c.leaf, "dim": c.dim, "start": c.start,
                             "size": c.size, "stream": s,
@@ -116,7 +127,7 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
                             "wire_bytes": wire_bytes_per_pod(
                                 x.numel() * x.element_size(), world,
                                 algo=algo, compress=compress),
-                            "sent_bytes": pending.sent_bytes})
+                            "sent_bytes": sent})
 
     out = [st.stitch_leaf(leaf, done[i]) if done[i] else leaf
            for i, leaf in enumerate(leaves)]

@@ -6,8 +6,14 @@ The port of ``accum_grads`` from the JAX package's ``core/overlap.py``.  With
 microbatch i's gradients are computed, as the reference orders it, so only
 the last sync is exposed.  With the int8 codec the two orders give different
 numbers (each synced gradient is quantized on its own), so the order is part
-of the result.  ``flush_hook`` (the bucketed backward flush) is not ported
-yet (ROADMAP.md queue A, 'bucketed overlap and flush_hook').
+of the result.
+
+:func:`flush_hook` is the bucketed backward flush (``core/buckets.py``): an
+identity in the forward around a bucket's layer range, whose backward runs
+the bucket's sync once every layer of the range has returned its gradient.
+Like ``accum_grads``, it issues the sync at the reference's point of the
+backward and waits for it there; it does not overlap it with the backward
+of earlier layers.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.autotune import simulate_transfer_s
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import flatten, tree_map, unflatten
 
 
 def accum_grads(grad_fn: Callable, params, microbatches: list, *,
@@ -52,6 +58,37 @@ def accum_grads(grad_fn: Callable, params, microbatches: list, *,
     s = sync(pending)                   # exposed tail (1/m of the naive cost)
     synced = s if synced is None else tree_map(torch.add, synced, s)
     return total_loss / m, metrics, synced
+
+
+class _Flush(torch.autograd.Function):
+    """Identity on a tree's leaves; the backward maps the cotangents through
+    `sync_fn` and returns them in the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, sync_fn, td, *leaves):
+        ctx.sync_fn, ctx.td = sync_fn, td
+        ctx.dtypes = [x.dtype for x in leaves]
+        return tuple(x.view_as(x) for x in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        synced = flatten(ctx.sync_fn(unflatten(ctx.td, list(grads))))[0]
+        return (None, None, *[g.to(dt) for g, dt in zip(synced, ctx.dtypes)])
+
+
+def flush_hook(sync_fn: Callable) -> Callable:
+    """Identity-in-forward hook whose *backward* runs `sync_fn` on the
+    cotangent tree: ``hook(tree) -> tree``.
+
+    Wrapped around a bucket's (layer-sliced) parameters before its layers
+    run, the hook runs the bucket's cross-pod gradient sync where the
+    bucket's backward slice is produced.  The cotangents come back in the
+    primal dtypes (the reference's ``custom_vjp`` forces that), so a
+    `sync_fn` that syncs in f32 rounds to the parameters' dtype again."""
+    def hook(tree):
+        leaves, td = flatten(tree)
+        return unflatten(td, list(_Flush.apply(sync_fn, td, *leaves)))
+    return hook
 
 
 def modeled_exposure(payload_bytes: float, link, *, streams: int,

@@ -6,6 +6,8 @@
       --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 2 \
       --ranks 4 --device cpu --steps 2
+  python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 3 \
+      --global-batch 6 --device cpu --steps 2
 
 Runs on the CUDA card unless ``--device cpu``.  ``--ranks N`` (default
 ``--pods``) stands for the JAX launcher's device count: the mesh is ``pods``
@@ -16,6 +18,11 @@ the step is ZeRO-3 (``TrainConfig.zero1``, on by default).  With ``RANK`` and
 is one rank; without them the launcher spawns N ranks, rank r on
 ``cuda:{r % device_count}``, so several ranks may share one card.  The
 trainer reads the global batch and gives each rank its rows.
+
+As the JAX launcher, the CLI has no flag for ``CommConfig.algo`` or
+``bucket_mb``: :func:`main` and :func:`train` take a ``comm`` keyword, a
+:class:`CommConfig` that every rank runs with in place of the one the
+``--mode``/``--streams``/``--chunk-mb``/``--compress`` flags build.
 
 The JAX launcher's checkpoint, production-mesh, route, chaos, local-SGD and
 membership flags are not ported yet and stop the launcher naming their
@@ -32,6 +39,7 @@ import os
 import shutil
 import tempfile
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -141,8 +149,9 @@ def profile_summary(prof, wall_s: float) -> dict:
                 dev_ops.items(), key=lambda kv: -kv[1][0])]}
 
 
-def train(args, rank: int = 0) -> dict:
-    """One rank's run; returns its report."""
+def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
+    """One rank's run; returns its report.  `comm`, when given, is the run's
+    CommConfig in place of the flags'."""
     dev = torch.device("cpu")
     if args.device != "cpu":
         if not torch.cuda.is_available():
@@ -158,10 +167,11 @@ def train(args, rank: int = 0) -> dict:
     gb = args.global_batch or (8 if args.smoke else base.global_batch)
     shape = ShapeConfig(base.name, seq, gb, "train")
     mesh = make_local_mesh(pod=args.pods, data=args.ranks // args.pods, device=dev)
+    if comm is None:
+        comm = CommConfig(mode=args.mode, streams=args.streams,
+                          chunk_mb=args.chunk_mb, compress=args.compress)
     rc = RunConfig(
-        model=cfg, shape=shape,
-        comm=CommConfig(mode=args.mode, streams=args.streams,
-                        chunk_mb=args.chunk_mb, compress=args.compress),
+        model=cfg, shape=shape, comm=comm,
         train=TrainConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 10, 1),
                           microbatches=args.microbatches))
@@ -171,10 +181,12 @@ def train(args, rank: int = 0) -> dict:
     say = print if rank == 0 else (lambda *_: None)
     trainer = Trainer(rc, mesh, check_replicas=args.check_replicas)
     path = trainer.bundle.path
+    plan_b = trainer.bundle.bucket_plan
     say(f"[train] {args.arch} params={cfg.param_count():,} mesh={mesh.shape} "
-        f"mode={args.mode} zero={trainer.bundle.zero} compress={args.compress} "
-        f"streams={path.streams} "
-        f"chunk={path.comm.chunk_mb}MiB device={dev}")
+        f"mode={comm.mode} zero={trainer.bundle.zero} compress={comm.compress} "
+        f"algo={comm.algo} streams={path.streams} "
+        f"chunk={path.comm.chunk_mb}MiB "
+        f"buckets={0 if plan_b is None else len(plan_b.buckets)} device={dev}")
     say(f"[train] {trainer.init_or_restore()} at step {trainer.step}")
     ops.reset_launch_counts()
     prof_out = None
@@ -196,7 +208,10 @@ def train(args, rank: int = 0) -> dict:
     hist = trainer.history
     say(f"[train] done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
         f"stragglers flagged: {len(trainer.detector.flagged)}")
-    plan = get_telemetry().path(path.key).plan
+    tel = get_telemetry()
+    plan = tel.path(path.key).plan
+    bucket_plans = [] if plan_b is None else [
+        tel.path(f"{path.key}/bkt{b.index}").plan.__dict__ for b in plan_b.buckets]
     report = {"rank": rank, "pods": args.pods, "ranks": args.ranks,
               "data": mesh.data, "pod_index": mesh.pod_index,
               "data_index": mesh.data_index, "zero": trainer.bundle.zero,
@@ -204,10 +219,12 @@ def train(args, rank: int = 0) -> dict:
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),
               "arch": cfg.name, "params": cfg.param_count(),
-              "seq_len": seq, "global_batch": gb, "mode": args.mode,
-              "compress": args.compress, "streams": path.streams,
+              "seq_len": seq, "global_batch": gb, "mode": comm.mode,
+              "compress": comm.compress, "algo": comm.algo,
+              "bucket_mb": comm.bucket_mb, "streams": path.streams,
               "chunk_mb": path.comm.chunk_mb,
               "plan": None if plan is None else plan.__dict__,
+              "bucket_plans": bucket_plans,
               "history": hist, "launches": launches, "profile": prof_out,
               "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None)}
@@ -220,16 +237,17 @@ def train(args, rank: int = 0) -> dict:
     return report
 
 
-def _worker(rank: int, args, init_method: str) -> None:
+def _worker(rank: int, args, init_method: str, comm) -> None:
     dist.init_process_group(BACKEND, init_method=init_method, rank=rank,
                             world_size=args.ranks)
     try:
-        train(args, rank)
+        train(args, rank, comm)
     finally:
         dist.destroy_process_group()
 
 
-def main(argv=None) -> None:
+def main(argv=None, *, comm: Optional[CommConfig] = None) -> None:
+    """The launcher; `comm` (see the module docstring) goes to every rank."""
     args = parser().parse_args(argv)
     _check_flags(args)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -238,17 +256,17 @@ def main(argv=None) -> None:
             raise SystemExit(f"WORLD_SIZE={dist.get_world_size()} but "
                              f"--ranks {args.ranks}")
         try:
-            train(args, dist.get_rank())
+            train(args, dist.get_rank(), comm)
         finally:
             dist.destroy_process_group()
         return
     if args.ranks == 1:
-        train(args, 0)
+        train(args, 0, comm)
         return
     rdv = tempfile.mkdtemp(prefix="repro_torch_train_")
     try:
         torch.multiprocessing.start_processes(
-            _worker, args=(args, f"file://{os.path.join(rdv, 'rendezvous')}"),
+            _worker, args=(args, f"file://{os.path.join(rdv, 'rendezvous')}", comm),
             nprocs=args.ranks, join=True, start_method="spawn")
     finally:
         shutil.rmtree(rdv, ignore_errors=True)

@@ -9,6 +9,11 @@ With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 :meth:`Transformer.loss` (ZeRO-3's all-gather at use) is applied to each
 layer's parameters inside that checkpoint, so the recompute gathers the
 layer again and the gathered layer is not kept between the passes.
+With ``flush_segments`` (the bucketed backward flush, ``core/buckets.py``)
+the stack is split at bucket boundaries and each segment's stacked
+parameters pass through its bucket's flush hook before they are unstacked
+into layers, so the hook's backward runs once every layer of the segment has
+returned its gradient.
 The MoE, vision-stub and encoder-decoder branches of the JAX model are not
 ported yet and raise :class:`NotImplementedError` naming the ROADMAP item.
 """
@@ -33,6 +38,20 @@ def layer_params(blocks: dict, i: int) -> dict:
     """Layer `i`'s parameters: views into the stacked tensors."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def split_layers(blocks: dict, bounds: list) -> list[dict]:
+    """The stacked parameters cut into the layer ranges `bounds` ([(lo, hi),
+    ...] tiling the stack in order), by ``torch.split`` of each tensor: in
+    the backward the segments' gradients are joined by one concatenation."""
+    sizes = [hi - lo for lo, hi in bounds]
+    out: list[dict] = [{} for _ in bounds]
+    for k, v in blocks.items():
+        parts = (split_layers(v, bounds) if isinstance(v, dict)
+                 else torch.split(v, sizes, 0))
+        for i, part in enumerate(parts):
+            out[i][k] = part
+    return out
 
 
 def unstack_layers(blocks: dict, n: int) -> list[dict]:
@@ -143,17 +162,30 @@ class Transformer:
                      gather) -> torch.Tensor:
         return self._block(gather(lp) if gather is not None else lp, x, positions)
 
-    def hidden_states(self, params: dict, batch: dict, *, gather=None):
+    def _layers(self, blocks: dict, flush_segments) -> list[dict]:
+        if flush_segments is None:
+            return unstack_layers(blocks, self.cfg.num_layers)
+        bounds, hooks = flush_segments
+        layers: list[dict] = []
+        for (lo, hi), hook, seg in zip(bounds, hooks, split_layers(blocks, bounds)):
+            layers += unstack_layers(hook(seg), hi - lo)
+        return layers
+
+    def hidden_states(self, params: dict, batch: dict, *, gather=None,
+                      flush_segments=None):
         """Full-sequence forward to the final-norm hidden states.  Returns
         (x, aux_loss, n_prefix), as the JAX package's does (aux 0 and no
         prefix in the dense family).  `gather(lp)` maps one layer's stored
-        parameters (ZeRO shards) to those it computes with."""
+        parameters (ZeRO shards) to those it computes with.
+        `flush_segments` = (layer bounds tiling the stack in order, one flush
+        hook per bound) splits the stack at gradient-bucket boundaries; the
+        forward computes the same numbers."""
         c = self.cfg
         self._check_dense()
         tokens = batch["tokens"]
         x = params["embed"][tokens]
         positions = torch.arange(x.shape[1], device=x.device)
-        for lp in unstack_layers(params["blocks"], c.num_layers):
+        for lp in self._layers(params["blocks"], flush_segments):
             if c.remat:
                 x = checkpoint(self._apply_block, lp, x, positions, gather,
                                use_reentrant=False)
@@ -163,14 +195,16 @@ class Transformer:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, 0
 
-    def loss(self, params: dict, batch: dict, *,
-             gather=None) -> tuple[torch.Tensor, dict]:
+    def loss(self, params: dict, batch: dict, *, gather=None,
+             flush_segments=None) -> tuple[torch.Tensor, dict]:
         """batch["tokens"]: (B, S+1), teacher forcing.  Returns
-        (mean_local_loss, metrics).  `gather`: as in :meth:`hidden_states`."""
+        (mean_local_loss, metrics).  `gather`, `flush_segments`: as in
+        :meth:`hidden_states`."""
         tokens = batch["tokens"]
         inputs = {**batch, "tokens": tokens[:, :-1]}
         labels = tokens[:, 1:]
-        x, aux, _ = self.hidden_states(params, inputs, gather=gather)
+        x, aux, _ = self.hidden_states(params, inputs, gather=gather,
+                                       flush_segments=flush_segments)
         sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels)
         loss = sum_loss / torch.clamp(count, min=1.0)
         return loss, {"ce_loss": loss, "aux_loss": aux, "tokens": count}

@@ -9,15 +9,20 @@ is a plain tree: ``{"m", "v"}`` in f32 shaped like the parameters, and
 ``step`` a 0-d int32 tensor.  Under ZeRO the gradients, parameters and
 moments are shards over the data axis: the global norm sums the scattered
 leaves' squares over the data-parallel group and the replicated ones
-locally, as the reference does.  The bucketed update (``buckets=``,
-ROADMAP.md queue A, 'bucketed overlap and flush_hook') is queued.
+locally, as the reference does.
+
+With ``buckets=`` (a :class:`repro_torch.core.buckets.BucketPlan` and the
+stacked flags it was planned with) the update is applied bucket by bucket
+over layer-range slices and concatenated back: the math is elementwise, so
+the bucketed update is bit-identical to the fused one.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.collectives import psum_group, queued
+from repro_torch.core.buckets import bucket_indices, slice_leaf
+from repro_torch.core.collectives import psum_group
 from repro_torch.core.tree import flatten, tree_map, unflatten
 
 
@@ -59,12 +64,16 @@ def global_norm(grads, dims=None, group=None) -> torch.Tensor:
 
 
 def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
-                 lr: torch.Tensor, *, dims=None, group=None, buckets=None):
+                 lr: torch.Tensor, *, dims=None, group=None, buckets=None,
+                 stacked=None):
     """One AdamW step.  Returns (new_params, new_opt_state, stats).  `dims`
     and `group` go to :func:`global_norm` (ZeRO: the shards' dims and the
-    data-parallel group)."""
-    if buckets is not None:
-        raise queued("the bucketed AdamW update", "bucketed overlap and flush_hook")
+    data-parallel group).  `buckets` (a ``BucketPlan``) with `stacked` (the
+    per-leaf flags it was planned with, a flat list or a tree beside the
+    parameters) applies the update bucket by bucket."""
+    if buckets is not None and stacked is None:
+        raise ValueError("adamw_update: buckets= needs the stacked flags the "
+                         "plan was built with (stacked=None)")
     step = opt_state["step"] + 1
     norm = global_norm(grads, dims, group)
     if tc.grad_clip:
@@ -87,10 +96,34 @@ def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
         return p2.to(p.dtype), m2, v2
 
     lp, td = flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        lp, flatten(grads)[0], flatten(opt_state["m"])[0],
-        flatten(opt_state["v"])[0])]
+    args = list(zip(lp, flatten(grads)[0], flatten(opt_state["m"])[0],
+                    flatten(opt_state["v"])[0]))
+    if buckets is not None and buckets.buckets:
+        out = _bucketed_apply(upd, args, buckets, stacked)
+    else:
+        out = [upd(*a) for a in args]
     return (unflatten(td, [o[0] for o in out]),
             {"m": unflatten(td, [o[1] for o in out]),
              "v": unflatten(td, [o[2] for o in out]), "step": step},
             {"grad_norm": norm})
+
+
+def _bucketed_apply(upd, args: list, plan, stacked) -> list:
+    """Apply a leafwise (p, g, m, v) -> (p, m, v) update bucket by bucket:
+    stacked leaves per layer-range slice, concatenated back along the layers
+    dim (the slices tile it), rest-bucket leaves whole; a leaf in no bucket
+    keeps its parameter and moments, as in the reference."""
+    flags = stacked if isinstance(stacked, list) else flatten(stacked)[0]
+    out: list = [(p, m, v) for p, _, m, v in args]
+    pieces: dict[int, list] = {}
+    for b in plan.buckets:
+        for i in bucket_indices(flags, b):
+            if b.is_rest:
+                out[i] = upd(*args[i])
+            else:
+                res = upd(*[slice_leaf(t, b.lo, b.hi) for t in args[i]])
+                pieces.setdefault(i, []).append((b.lo, res))
+    for i, ps in pieces.items():
+        ps.sort(key=lambda t: t[0])
+        out[i] = tuple(torch.cat([r[j] for _, r in ps], dim=0) for j in range(3))
+    return out

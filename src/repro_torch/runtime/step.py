@@ -14,13 +14,18 @@ jitted shard_map.
   ZeRO-3: parameters and AdamW moments are stored scattered over the data
   group, each layer's weights are all-gathered at use (:class:`AllGatherAtUse`,
   whose backward reduce-scatters the gradients in f32), and only the 1/D
-  shards cross the pod axis.  Buckets, routes, site groups and local SGD are
-  queued (ROADMAP.md queue A).
+  shards cross the pod axis.  Under ZeRO, ``CommConfig.bucket_mb > 0``
+  buckets the gradient sync along the stacked layers (``core/buckets.py``):
+  with no wire codec each bucket's sync runs in the backward from a flush
+  hook around its layer range (flush mode), with a codec the post-backward
+  sync runs bucket by bucket (tail mode); AdamW takes the buckets one by
+  one.  Routes, site groups and local SGD are queued (ROADMAP.md queue A).
 * :func:`build_serve_step`: prefill / decode on one device, under
   ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -29,13 +34,14 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.core import buckets as bk
 from repro_torch.core import streams as st
 from repro_torch.core import telemetry as tel
 from repro_torch.core.autotune import autotune_path
 from repro_torch.core.collectives import (all_gather_dim, psum_group, queued,
                                           reduce_scatter_dim, streamed_psum,
                                           wide_allreduce)
-from repro_torch.core.overlap import accum_grads, modeled_exposure
+from repro_torch.core.overlap import accum_grads, flush_hook, modeled_exposure
 from repro_torch.core.path import INTERPOD, WidePath
 from repro_torch.core.tree import flatten, tree_map, unflatten
 from repro_torch.launch.roofline import modeled_compute_window
@@ -70,6 +76,7 @@ class StepBundle:
     mesh: object = None                # train bundles: the PodMesh
     dims: object = None                # per-leaf scatter dims of the stored state (ZeRO), else None
     zero: bool = False
+    bucket_plan: object = None         # BucketPlan when the sync is bucketed
 
     def init_state(self, seed: int = 0) -> dict:
         """Parameters from `seed` and a fresh optimizer state, on the
@@ -175,25 +182,83 @@ def _eff_grad_leaves(defs, dims, shard: int):
 
 
 def _note_path_plan(defs, dims, path: WidePath, shard: int, world: int = 1, *,
-                    window: float = 0.0, m_micro: int = 1) -> None:
+                    stacked_flags=None, window: float = 0.0,
+                    m_micro: int = 1) -> None:
     """Record the path's static gradient-sync plan into telemetry, as the
     JAX package records it at build time: gradients are f32 on the wire and,
     under ZeRO, each scatterable leaf crosses pods as a 1/shard slice;
-    `world` (the pod-axis size) feeds the modeled per-pod wire bytes; the
-    modeled exposure against `window` lands in the overlap note."""
+    `world` (the pod-axis size) feeds the modeled per-pod wire bytes; with
+    `stacked_flags` (the sync is bucketed) each bucket's plan lands under
+    ``{key}/bkt{i}``; the modeled exposure against `window` lands in the
+    overlap note."""
     eff_leaves, eff_dims = _eff_grad_leaves(defs, dims, shard)
     chunks = st.plan_chunks(eff_leaves, eff_dims, path.chunk_bytes)
     buckets = st.assign_streams(chunks, path.streams)
     tel.note_plan(path.key, **st.plan_summary(
         chunks, buckets, path.streams, path.chunk_bytes, path.comm.pacing,
         algo=path.comm.algo, world=world, compress=path.comm.compress))
+    bucketed = stacked_flags is not None and path.bucket_bytes > 0
+    if bucketed:
+        bk.note_bucket_plans(path, eff_leaves, eff_dims, None, world=world,
+                             flags=stacked_flags)
     res = modeled_exposure(
         sum(st.leaf_bytes(x) for x in eff_leaves), path.link,
         streams=path.streams, chunk_bytes=path.chunk_bytes,
-        pacing=path.comm.pacing, compute_window=window, bucket_bytes=0,
+        pacing=path.comm.pacing, compute_window=window,
+        bucket_bytes=path.bucket_bytes if bucketed else 0,
         microbatches=m_micro, world=max(2, world),
         algo=path.comm.algo, compress=path.comm.compress)
     tel.note_overlap(path.key, res["exposed_s"], res["overlapped_s"])
+
+
+def _make_flush_segments(defs, dims, path: WidePath, plan, mesh, shard: int,
+                         record):
+    """(layer bounds, one flush hook per bound) for the segmented layer loop.
+
+    Each hook's backward casts its bucket's gradients (the stacked blocks'
+    slices) to f32, sums the replicated leaves over the data group, runs the
+    bucket's streamed psum under ``{key}/bkt{i}`` with each slice chunked in
+    its full leaf's rows, and rounds back to the leaf's dtype, as the
+    reference's ``_make_flush_segments`` does.  `record(i)` is a context
+    manager around bucket i's sync that yields the list its chunks are
+    logged into."""
+    blocks_eff, blocks_dims = _eff_grad_leaves(defs["blocks"], dims["blocks"],
+                                               shard)
+    blocks_ndims = st.normalize_dims(blocks_eff, blocks_dims)
+    rows_full = [st.chunk_rows(x, d, path.chunk_bytes)
+                 for x, d in zip(blocks_eff, blocks_ndims)]
+    index_of = {(b.lo, b.hi): b.index for b in plan.layer_buckets}
+
+    def make_sync(bi: int):
+        def sync_seg(g):
+            leaves, td = flatten(g)
+            gf = [l.float() for l in leaves]
+            with record(bi) as log:
+                gf = [psum_group(l, mesh.data_group) if d is None else l
+                      for l, d in zip(gf, blocks_dims)]
+                chunks = st.plan_chunks(gf, blocks_ndims, path.chunk_bytes,
+                                        rows=rows_full)
+                synced = streamed_psum(gf, path, mesh, dims=blocks_dims,
+                                       tel_key=f"{path.key}/bkt{bi}",
+                                       chunks=chunks, log=log)
+            return unflatten(td, [s.to(l.dtype) for s, l in zip(synced, leaves)])
+        return sync_seg
+
+    bounds = plan.layer_bounds
+    return bounds, [flush_hook(make_sync(index_of[b])) for b in bounds]
+
+
+def _bucket_rows(plan, log: list, seconds: dict) -> list:
+    """Per bucket of `plan`, in index order: its sync seconds and the
+    chunks, payload, wire and sent bytes of its logged chunks."""
+    rows = []
+    for b in plan.buckets:
+        mine = [c for c in log if c["bucket"] == b.index]
+        rows.append({"index": b.index, "lo": b.lo, "hi": b.hi,
+                     "sync_s": seconds.get(b.index, 0.0), "n_chunks": len(mine),
+                     **{k: sum(c[k] for c in mine) for k in
+                        ("payload_bytes", "wire_bytes", "sent_bytes")}})
+    return rows
 
 
 def _detached(metrics: dict) -> dict:
@@ -212,12 +277,15 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     Metrics: loss (averaged over every rank), lr, grad_norm (the
     reference's: under ZeRO the scattered leaves count once per pod,
     ROADMAP.md §C 6), aux_loss, and of the step's gradient sync: sync_s
-    (host clock from a device sync to the synced gradients; under ZeRO the
-    in-pod reduce-scatter runs in the backward, before it), chunks (the
-    per-chunk log of :func:`repro_torch.core.collectives.streamed_psum`),
-    wire_bytes (their modeled per-pod link bytes) and sent_bytes; under
-    ZeRO also the in-pod stages' host seconds and calls (gather_s,
-    gather_n, reduce_scatter_s, reduce_scatter_n; :func:`inpod_stats`)."""
+    (host clock from a device sync to the synced gradients, the flush
+    hooks' syncs in the backward included; under ZeRO the in-pod
+    reduce-scatter runs in the backward, before it), chunks (the per-chunk
+    log of :func:`repro_torch.core.collectives.streamed_psum`), wire_bytes
+    (their modeled per-pod link bytes) and sent_bytes; under ZeRO also the
+    in-pod stages' host seconds and calls (gather_s, gather_n,
+    reduce_scatter_s, reduce_scatter_n; :func:`inpod_stats`); bucket_mode
+    ("flush", "tail" or None) and buckets (per bucket: its sync seconds,
+    chunks, payload, wire and sent bytes; :func:`_bucket_rows`)."""
     if route is not None:
         raise queued("a multi-hop route", "facade, relays, files, checkpoints")
     if site_groups is not None:
@@ -246,24 +314,99 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
                                     microbatches=m_micro)
     path = autotune_path(path, _param_bytes(defs) // shard, world=pod_world,
                          compute_window=window)
+
+    # bucketed sync (core/buckets.py), under the reference's conditions:
+    # flush mode (each bucket synced in the backward by a hook around its
+    # layer range) needs the model's support and no wire codec; tail mode
+    # (the post-backward sync bucket by bucket) otherwise
+    bucketed = bool(path.bucket_bytes > 0 and rc.comm.mode == "hierarchical"
+                    and zero)
+    use_flush = bool(bucketed and rc.comm.compress == "none"
+                     and "flush_segments" in inspect.signature(model.loss).parameters)
+    stacked_tree = {k: tree_map(lambda pd: k == "blocks", v)
+                    for k, v in defs.items()}
+    plan = stacked_flags = None
+    if bucketed:
+        eff_leaves, eff_dims = _eff_grad_leaves(defs, dims, shard)
+        raw_flags = flatten(stacked_tree)[0]
+        stacked_flags = (raw_flags if use_flush
+                         else bk.bucketable_flags(eff_leaves, raw_flags, eff_dims))
+        plan = bk.plan_buckets(eff_leaves, stacked_flags, path.bucket_bytes)
+        if not plan.layer_buckets:
+            bucketed = use_flush = False
+            plan = stacked_flags = None
     if rc.comm.mode != "flat":
-        _note_path_plan(defs, dims, path, shard, pod_world, window=window,
+        _note_path_plan(defs, dims, path, shard, pod_world,
+                        stacked_flags=stacked_flags, window=window,
                         m_micro=m_micro)
     inpod = inpod_stats()
     gather_layer, gather_top = _make_gather(defs, dims, zero, mesh.data_group,
                                             inpod)
     dp_world = mesh.pod * mesh.data
+    # this step's sync record: seconds, the chunk log, each bucket's seconds
+    cur: dict = {}
+
+    @contextmanager
+    def record(bucket=None, total=True):
+        """Time a sync into the step's record (its sync_s unless not
+        `total`, and the seconds of `bucket`) and give it a chunk log that
+        lands in the step's, tagged with `bucket`."""
+        log: list = []
+        acc = {"sync_s": 0.0, "sync_n": 0}
+        with _timed(acc, "sync", dev):
+            yield log
+        if total:
+            cur["sync_s"] += acc["sync_s"]
+        if bucket is not None:
+            cur["bucket_s"][bucket] = cur["bucket_s"].get(bucket, 0.0) + acc["sync_s"]
+            log = [{**c, "bucket": bucket} for c in log]
+        cur["log"] += log
+
+    flush_segments = (_make_flush_segments(defs, dims, path, plan, mesh, shard,
+                                           record) if use_flush else None)
+    rest_keys = [k for k in defs if k != "blocks"]
 
     def grad_fn(params, mb):
         leaves, td = flatten(params)
         ps = [p.detach().requires_grad_(True) for p in leaves]
+        kw = {} if flush_segments is None else {"flush_segments": flush_segments}
         loss, metrics = model.loss(gather_top(unflatten(td, ps)), mb,
-                                   gather=gather_layer)
+                                   gather=gather_layer, **kw)
         grads = torch.autograd.grad(loss, ps)
         # f32 gradients from here on, as in the reference: f32 accumulation
         # and an f32 wire for every comm mode
         return (loss.detach(), _detached(metrics)), unflatten(
             td, [g.float() for g in grads])
+
+    def psum_replicated(grads, dims_):
+        # the shards' in-pod reduction ran in the backward; the replicated
+        # leaves still need theirs
+        return map_with_dims(lambda g, d: psum_group(g, mesh.data_group)
+                             if d is None else g, grads, dims_)
+
+    def sync(grads):
+        if use_flush:
+            # the blocks were synced in the backward by the flush hooks;
+            # the rest bucket (embedding, final norm) is left
+            rest = {k: grads[k] for k in rest_keys}
+            rest_dims = {k: dims[k] for k in rest_keys}
+            i = len(plan.layer_buckets)
+            with record(i) as log:
+                rest = streamed_psum(psum_replicated(rest, rest_dims), path,
+                                     mesh, dims=rest_dims, log=log,
+                                     tel_key=f"{path.key}/bkt{i}")
+            return {**rest, "blocks": grads["blocks"]}
+        if bucketed:
+            with record() as log:
+                return bk.bucketed_sync(
+                    psum_replicated(grads, dims), path, mesh,
+                    stacked=stacked_tree, dims=dims, log=log,
+                    timer=lambda i: record(i, total=False))
+        with record() as log:
+            if zero:   # only the 1/D shards cross the pod axis
+                return streamed_psum(psum_replicated(grads, dims), path, mesh,
+                                     dims=dims, log=log)
+            return wide_allreduce(grads, path, mesh, dims=dims, log=log)
 
     def fn(state: dict, batch: dict):
         params = state["params"]
@@ -272,49 +415,33 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
             raise ValueError(f"local batch {tokens.shape[0]} does not split "
                              f"into {m_micro} microbatches")
         mbs = [{**batch, "tokens": t} for t in tokens.chunk(m_micro, dim=0)]
-        log: list = []
-        sync_s = [0.0]
+        cur.update(sync_s=0.0, log=[], bucket_s={})
         inpod.update(inpod_stats())
-
-        def sync(grads):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            if zero:
-                # the shards' in-pod reduction ran in the backward; the
-                # replicated leaves still need theirs, then only the 1/D
-                # shards cross the pod axis
-                grads = map_with_dims(
-                    lambda g, d: psum_group(g, mesh.data_group)
-                    if d is None else g, grads, dims)
-                out = streamed_psum(grads, path, mesh, dims=dims, log=log)
-            else:
-                out = wide_allreduce(grads, path, mesh, dims=dims, log=log)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            sync_s[0] += time.perf_counter() - t0
-            return out
-
         loss, metrics, grads = accum_grads(grad_fn, params, mbs, sync=sync,
                                            overlap=m_micro > 1)
         grads = tree_map(lambda g: g.div_(dp_world), grads)
         lr = lr_at(state["opt"]["step"], tc, device=dev)
         new_params, new_opt, stats = adamw_update(
             grads, state["opt"], params, tc, lr, dims=dims_or_none,
-            group=dp_group if zero else None)
+            group=dp_group if zero else None, buckets=plan,
+            stacked=stacked_flags)
         if mesh.world_group is not None:
             lh = loss.detach().float().reshape(1).cpu()
             loss = (psum_group(lh, mesh.world_group) / dp_world).reshape(()).to(dev)
+        log = cur["log"]
         out = {"loss": loss, "lr": lr, **stats,
                "aux_loss": metrics.get("aux_loss"),
-               "sync_s": sync_s[0], "chunks": log,
+               "sync_s": cur["sync_s"], "chunks": log,
                "wire_bytes": sum(c["wire_bytes"] for c in log),
-               "sent_bytes": sum(c["sent_bytes"] for c in log), **inpod}
+               "sent_bytes": sum(c["sent_bytes"] for c in log), **inpod,
+               "bucket_mode": ("flush" if use_flush else "tail") if bucketed else None,
+               "buckets": [] if plan is None else _bucket_rows(
+                   plan, log, cur["bucket_s"])}
         return {"params": new_params, "opt": new_opt}, out
 
     return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
                       device=dev, mesh=mesh, dims=dims if zero else None,
-                      zero=zero)
+                      zero=zero, bucket_plan=plan)
 
 
 def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,

@@ -2,10 +2,11 @@
 
 The port of the loop of the JAX package's ``runtime/train_loop.py``: fresh
 initialization, the step loop with its history (loss, lr, grad_norm, step
-seconds), the straggler detector and the path telemetry.  Checkpointing and
-fault recovery, online autotuning, routes, chaos, elastic membership and
-local SGD are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP item.
+seconds, the gradient sync's seconds, chunks and bytes, and with a bucketed
+sync its mode and each bucket's), the straggler detector and the path
+telemetry.  Checkpointing and fault recovery, online autotuning, routes,
+chaos, elastic membership and local SGD are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 
 With ``check_replicas`` the loop holds the data-parallel invariant after
 every step, compared by a checksum of the parameters' bits: without ZeRO
@@ -188,7 +189,13 @@ class Trainer:
                    "wire_bytes": metrics["wire_bytes"],
                    "sent_bytes": metrics["sent_bytes"],
                    "payload_bytes": sum(c["payload_bytes"] for c in metrics["chunks"]),
-                   "n_chunks": len(metrics["chunks"])}
+                   "n_chunks": len(metrics["chunks"]),
+                   # each chunk's extent along its dim and its f32 bytes
+                   "chunk_sizes": [[c["size"], c["payload_bytes"]]
+                                   for c in metrics["chunks"]],
+                   "bucket_mode": metrics["bucket_mode"],
+                   "n_buckets": len(metrics["buckets"]),
+                   "buckets": metrics["buckets"]}
             if self.check_replicas:
                 rec["checksum"] = self._replicas_agree()
             self.history.append(rec)

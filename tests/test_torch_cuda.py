@@ -368,3 +368,65 @@ def test_zero_gather_and_reduce_scatter_round_trip_on_the_card(cuda, tmp_path):
         assert r[i]["dx"].dtype == torch.bfloat16 and torch.equal(r[i]["dx"], want_dx)
         assert torch.equal(r[i]["rs"], total.chunk(2, dim=0)[i])
         assert torch.equal(r[i]["ps"], total)
+
+
+# the int8 ring's wire blocks (min(256, segment extent)): a 28-row embedding
+# chunk of qwen1.5-0.5b over 3 pods pads to 30, block 10, 151936 rows; at the
+# autotuner's 19 MiB chunks blocks 25 (67584 rows) and 11; other extents
+# below 256, rows that are no multiple of anything
+@pytest.mark.parametrize("rows,block,per_row", [(151936, 10, 1), (1001, 86, 3),
+                                                (7, 128, 5), (333, 10, 2),
+                                                (67584, 25, 1), (151936, 11, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_dequant_exact_at_ring_wire_blocks(cuda, rows, block, per_row, dtype):
+    x = _rnd(cuda, rows, block * per_row, dtype=dtype, scale=2.0, seed=rows)
+    x[0, :block] = 0.0
+    assert quant.quant_path(block, x.data_ptr()) == quant.PATH_BLOCK
+    q, s = quant.quant_int8_2d(x, block=block)
+    qr, sr = ref.quant_int8_ref(x, block)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(quant.dequant_int8_2d(q, s, block=block, dtype=dt),
+                           ref.dequant_int8_ref(q, s, block, dt))
+
+
+def _ring_rank(rank: int, world: int, init: str, out: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.core import ring as rg
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        group = dist.new_group(list(range(world)), backend="gloo")
+        res = {}
+        for name, shape, dim in (("embed", (151936, 28), 1), ("w", (2816, 63), 1),
+                                 ("odd", (7, 300), 0)):
+            x = _rnd(dev, *shape, dtype=torch.float32, seed=40 + rank)
+            for bi in (False, True):
+                ops.reset_launch_counts()
+                got = rg.ring_allreduce(x, dim, group, compress="int8", bidirectional=bi)
+                launches = ops.launch_counts()
+                want = rg.ring_allreduce(x.cpu(), dim, group, compress="int8",
+                                         bidirectional=bi)
+                assert got.device == x.device and got.dtype == x.dtype
+                res[f"{name}_{bi}"] = (torch.equal(got.cpu(), want),
+                                       launches["quant_int8"], launches["dequant_int8"])
+        torch.save(res, f"{out}/ring_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_int8_ring_on_the_card_matches_the_cpu(cuda, tmp_path, world):
+    """The int8 ring on CUDA tensors (ranks sharing the one card, gloo through
+    pinned host copies) gives the CPU ring's bits; per direction it launches
+    quant P times and dequant 2P - 1 times (ring2 runs two directions when
+    the extent is at least 2)."""
+    torch.multiprocessing.start_processes(
+        _ring_rank, args=(world, f"file://{tmp_path}/rdv", str(tmp_path)),
+        nprocs=world, join=True, start_method="spawn")
+    for r in range(world):
+        for key, (same, nq, ndq) in torch.load(tmp_path / f"ring_rank{r}.pt").items():
+            dirs = 2 if key.endswith("True") else 1
+            assert same, (r, key)
+            assert (nq, ndq) == (dirs * world, dirs * (2 * world - 1)), (r, key)

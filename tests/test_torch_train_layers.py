@@ -220,7 +220,9 @@ def test_global_norm_and_queued_options():
     want = np.sqrt(sum(float((a.astype(np.float64) ** 2).sum())
                        for a in jax.tree.leaves(g_np)))
     np.testing.assert_allclose(float(global_norm(pg)), want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the bucketed update is ported (tests/test_torch_buckets.py); a plan
+    # without the stacked flags it was built with is refused
+    with pytest.raises(ValueError, match="stacked"):
         adamw_update(pg, init_opt_state(pg), pg, TrainConfig(), torch.tensor(1e-3),
                      buckets=object())
 
