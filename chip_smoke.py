@@ -67,7 +67,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             direction per step; step and sync ms, the bytes sent against
             the psum path's modeled wire, and the int8 wire blocks used.  Then quant
             and dequant against their plain versions and timed at the wire
-            block shape the int8 ring run used most.
+            block shape the int8 ring run used most;
+11. sites   ``runtime.Trainer`` driven in four spawned ranks on the card:
+            full-width qwen1.5-0.5b on 2 sites x 2 pods (``site_groups``
+            from a ``core/topology.py`` Topology), 3 steps each of the
+            gateway ring with int8 and the masked psum with no codec, and
+            the plain 4-pod run: replicas bit-identical after every step,
+            step 1's loss the plain run's bit for bit and steps 2-3 within
+            1e-3, the ``/intra`` and ``/wan`` plans the host planner's, no
+            WAN-stage byte from a non-gateway on the ring, quant and
+            dequant as a ring of the 2 gateways needs; step, sync
+            and sent bytes per rank, peak memory;
+12. autotune the Trainer with ``autotune_every=2`` on 2 pods, int8, 8 steps:
+            every rank on the same config at every step, at least one
+            retune, replicas bit-identical, the first step of each new
+            bundle kept out of the straggler detector, stream groups the
+            most streams used; the retunes and each config's step ms.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -90,7 +105,7 @@ PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
 PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train", "zero",
-          "buckets", "ring")
+          "buckets", "ring", "sites", "autotune")
 CODECS = ("none", "bf16", "int8")
 
 
@@ -1191,6 +1206,346 @@ def phase_kernels_ring(torch, dev, shape: dict) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: site groups and online autotuning, Trainer in spawned ranks
+# ---------------------------------------------------------------------------
+
+# the Trainer's model and batch, as the launcher builds them from TRAIN_ARGS:
+# full-width qwen1.5-0.5b, 4096 tokens a pod (one sequence)
+TRAINER_SPEC = {"arch": "qwen1.5-0.5b", "smoke": False, "seq_len": 4096,
+                "device": "cuda", "gloo_timeout_s": 900}
+SITE_STEPS = 3
+# (run, algo, codec, site groups on): the gateway ring, the masked psum, and
+# the plain 4-pod hierarchical run they are held to
+SITE_RUNS = (("ring_int8", "ring", "int8", True), ("psum_none", "psum", "none", True),
+             ("plain_none", "psum", "none", False))
+SITE_LOSS_TOL = 1e-3
+AUTOTUNE_STEPS = 8
+AUTOTUNE_EVERY = 2
+
+
+def _trainer_rc(spec: dict, n_pods: int, steps: int, comm):
+    from repro_torch.configs import (RunConfig, ShapeConfig, TrainConfig,
+                                     get_config, smoke_config)
+    cfg = get_config(spec["arch"])
+    if spec["smoke"]:
+        cfg = smoke_config(cfg)
+    # the launcher's TrainConfig for --steps `steps` at its default lr
+    return RunConfig(model=cfg, shape=ShapeConfig("train_4k", spec["seq_len"], n_pods,
+                                                  "train"), comm=comm,
+                     train=TrainConfig(lr=3e-4, total_steps=steps,
+                                       warmup_steps=max(steps // 10, 1)))
+
+
+def _rank_setup(torch, rank: int, world: int, init: str, spec: dict, pods: int):
+    """Join the gloo world and build the mesh of `pods` pods x 1 data rank
+    on this rank's device (the ranks share the card)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    timeout = datetime.timedelta(seconds=spec["gloo_timeout_s"])
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=timeout)
+    dev = torch.device("cpu")
+    if spec["device"] != "cpu":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dist, dev, make_local_mesh(pod=pods, device=dev, timeout=timeout)
+
+
+def _run_record(torch, tr, dev, hist, launches) -> dict:
+    path = tr.bundle.path
+    return {"history": hist, "launches": launches, "streams": path.streams,
+            "chunk_bytes": path.chunk_bytes, "pacing": path.comm.pacing,
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None)}
+
+
+def _site_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One of 4 ranks (4 pods x 1 data rank): the SITE_RUNS one after the
+    other, each a Trainer from seed 0 for SITE_STEPS steps; writes its report."""
+    import torch
+    from repro_torch.configs import CommConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.core.topology import LinkProfile, Topology
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer
+    dist, dev, mesh = _rank_setup(torch, rank, 4, init, spec, pods=4)
+    try:
+        topo = Topology()
+        topo.add_site("s0", n_pods=2)
+        topo.add_site("s1", n_pods=2)
+        topo.connect("s0", "s1", LinkProfile("wan", 50e-3, 1e8))
+        groups, gateways = topo.pod_groups(), topo.gateways()
+        rep = {"rank": rank, "site_groups": groups, "gateways": gateways, "runs": {}}
+        for name, algo, codec, sited in SITE_RUNS:
+            rc = _trainer_rc(spec, 4, SITE_STEPS, CommConfig(
+                mode="hierarchical", compress=codec, algo=algo))
+            data = make_pipeline(DataConfig(vocab_size=rc.model.vocab_size,
+                                            seq_len=spec["seq_len"], global_batch=4),
+                                 prefetch=0)
+            tel.get_telemetry().reset()
+            tr = Trainer(rc, mesh, site_groups=groups if sited else None,
+                         check_replicas=True)
+            tr.init_or_restore(0)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            hist = tr.run(data, SITE_STEPS, log_every=0)
+            r = _run_record(torch, tr, dev, hist, ops.launch_counts())
+            key = tr.bundle.path.key
+            r["plans"] = {k: v["plan"] for k, v in
+                          tel.get_telemetry().report(prefix=key).items()}
+            rep["runs"][name] = r
+            del tr
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(os.path.join(out, f"sites.rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _autotune_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One of 2 ranks (2 pods): a Trainer with the int8 wire and
+    ``autotune_every=AUTOTUNE_EVERY`` for AUTOTUNE_STEPS steps, one step a
+    call so that each step's plan can be read; writes its report."""
+    import torch
+    from repro_torch.configs import CommConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer
+    dist, dev, mesh = _rank_setup(torch, rank, 2, init, spec, pods=2)
+    try:
+        rc = _trainer_rc(spec, 2, AUTOTUNE_STEPS,
+                         CommConfig(mode="hierarchical", compress="int8"))
+        data = make_pipeline(DataConfig(vocab_size=rc.model.vocab_size,
+                                        seq_len=spec["seq_len"], global_batch=2),
+                             prefetch=0)
+        tel.get_telemetry().reset()
+        tr = Trainer(rc, mesh, autotune_every=AUTOTUNE_EVERY, check_replicas=True)
+        tr.init_or_restore(0)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        streams_used = []
+        for _ in range(AUTOTUNE_STEPS):
+            streams_used.append(tel.get_telemetry().path(tr.bundle.path.key)
+                                .plan.streams_used)
+            tr.run(data, 1, log_every=0,
+                   log=print if rank == 0 else (lambda *_: None))
+        r = _run_record(torch, tr, dev, tr.history, ops.launch_counts())
+        r.update(rank=rank, streams_used=streams_used, stream_groups=mesh.n_streams,
+                 retunes=tel.get_telemetry().path(tr.bundle.path.key).retunes,
+                 tune_bucket=tr.tuner.tune_bucket, n_bundles=len(tr._bundles),
+                 flagged=tr.detector.flagged)
+        with open(os.path.join(out, f"autotune.rank{rank}.json"), "w") as f:
+            json.dump(r, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(torch, fn, n: int, out_dir: str, spec: dict, label: str) -> list:
+    rdv = os.path.join(out_dir, f"{label}_rdv")
+    torch.multiprocessing.start_processes(fn, args=(f"file://{rdv}", out_dir, spec),
+                                          nprocs=n, join=True, start_method="spawn")
+    return [json.load(open(os.path.join(out_dir, f"{label}.rank{r}.json")))
+            for r in range(n)]
+
+
+def _kernels_ran(la: dict, tag: str, kernels: bool) -> None:
+    check(not kernels or (la["flash_attention"] > 0 and la["flash_attention_bwd"] > 0
+                          and la["rmsnorm"] > 0), f"{tag}: kernels launched {la}")
+
+
+def _sync_stats(hist: list, pod: int) -> dict:
+    h = hist[1:]                       # steps 2.., past the first one's warm-up
+    import numpy as np
+    return {"step_ms_median_steps_2_3": 1e3 * float(np.median([x["time_s"] for x in h])),
+            "sync_ms_median_steps_2_3": 1e3 * float(np.median([x["sync_s"] for x in h])),
+            "sent_bytes_per_step": hist[-1]["sent_bytes"], "pod": pod}
+
+
+def site_plans(spec: dict, run: dict, algo: str, codec: str, sites: int,
+               pods: int) -> dict:
+    """The ``/intra`` and ``/wan`` plans of the site sync of `spec`'s model,
+    from the port's planner on the host: f32 gradients chunked along their
+    scatter dims (no ZeRO at one data rank), the intra stage unchunked-in-
+    one-stream over a site's pods, the WAN stage over the gateways with the
+    path's knobs (`run`'s), its wire the gateways' averaged over the pods."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import streams as st
+    from repro_torch.core.ring import wire_bytes_per_pod
+    from repro_torch.models import build_model
+    from repro_torch.runtime.step import _eff_grad_leaves
+    from repro_torch.sharding import tree_fsdp_dims
+    cfg = get_config(spec["arch"])
+    if spec["smoke"]:
+        cfg = smoke_config(cfg)
+    defs = build_model(cfg).param_defs()
+    leaves, dims = _eff_grad_leaves(defs, tree_fsdp_dims(defs, 1, 1), 1)
+    dims = st.normalize_dims(leaves, dims)
+    chunk_bytes, streams = run["chunk_bytes"], run["streams"]
+    intra = st.plan_chunks(leaves, dims, chunk_bytes)
+    wan = st.plan_chunks(leaves, dims, chunk_bytes)
+    wire = wire_bytes_per_pod(sum(c.nbytes for c in wan), sites, algo=algo,
+                              compress=codec) * sites / pods
+    return {"intra": st.plan_summary(intra, st.assign_streams(intra, 1), 1,
+                                     chunk_bytes, 1.0, world=pods // sites),
+            "wan": st.plan_summary(wan, st.assign_streams(wan, streams), streams,
+                                   chunk_bytes, run["pacing"], algo=algo, world=sites,
+                                   compress=codec, wire_bytes=int(round(wire)))}
+
+
+def phase_sites(torch, out_dir: str, spec: dict = TRAINER_SPEC,
+                kernels: bool = True) -> dict:
+    """Full-width qwen1.5-0.5b on 2 sites x 2 pods (four spawned ranks on
+    the card), ``Trainer(site_groups=[[0, 1], [2, 3]])`` from a Topology of
+    two sites, hierarchical, 3 steps each of the gateway ring with int8 and
+    the masked psum with no codec, then the plain 4-pod run.  Checks: the
+    replicas bit-identical on all four ranks after every step (the
+    Trainer's check_replicas raises first), step 1's loss the plain run's
+    bit for bit and steps 2-3 within SITE_LOSS_TOL of it (psum: the sums
+    differ in order only; ring: and by the int8 codec), the ``/intra`` and
+    ``/wan`` plans the host planner's, every step's WAN chunks and wire
+    bytes the ``/wan`` plan's, no WAN-stage byte from a non-gateway on the
+    ring, and quant 2 and
+    dequant 3 launches per WAN chunk per step on a gateway (a ring of 2),
+    none elsewhere; the flash kernels and rmsnorm on every rank."""
+    reps = _spawn(torch, _site_rank, 4, out_dir, spec, "sites")
+    gateways = reps[0]["gateways"]
+    plain = reps[0]["runs"]["plain_none"]["history"]
+    out = {"site_groups": reps[0]["site_groups"], "gateways": gateways}
+    for name, algo, codec, sited in SITE_RUNS:
+        runs = [rp["runs"][name] for rp in reps]
+        r0 = runs[0]
+        tag = f"sites {name}"
+        sums = [[h["checksum"] for h in r["history"]] for r in runs]
+        check(all(s == sums[0] for s in sums), f"{tag}: replicas bit-identical {sums}")
+        losses = [h["loss"] for h in r0["history"]]
+        check(all(math.isfinite(x) for x in losses), f"{tag}: finite losses {losses}")
+        row = {"algo": algo, "codec": codec, "site_groups": sited, "losses": losses,
+               "checksums": sums[0], "streams": r0["streams"],
+               "chunk_bytes": r0["chunk_bytes"],
+               "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in runs],
+               "launches_rank0": r0["launches"],
+               "by_rank": [_sync_stats(r["history"], p) for p, r in enumerate(runs)]}
+        for p, r in enumerate(runs):
+            _kernels_ran(r["launches"], f"{tag} rank {p}", kernels)
+        if sited:
+            gaps = [abs(a["loss"] - b["loss"]) for a, b in zip(r0["history"], plain)]
+            row["loss_gap_to_plain"] = gaps
+            check(losses[0] == plain[0]["loss"],
+                  f"{tag}: step-1 loss {losses[0]} is the plain run's {plain[0]['loss']}")
+            check(all(g <= SITE_LOSS_TOL for g in gaps),
+                  f"{tag}: losses within {SITE_LOSS_TOL} of the plain run's {gaps}")
+            want = site_plans(spec, r0, algo, codec, sites=len(gateways), pods=4)
+            key = "train:interpod"
+            for r in runs:
+                check(r["plans"][f"{key}/intra"] == want["intra"]
+                      and r["plans"][f"{key}/wan"] == want["wan"],
+                      f"{tag}: /intra and /wan plans {r['plans']} are the host "
+                      f"planner's {want}")
+            wan = want["wan"]
+            for p, r in enumerate(runs):
+                gw = p in gateways
+                for h in r["history"]:
+                    check(h["n_chunks"] == wan["n_chunks"]
+                          and h["payload_bytes"] == wan["payload_bytes"]
+                          and round(h["wire_bytes"]) == wan["wire_bytes"],
+                          f"{tag} rank {p} step {h['step']}: WAN chunks and wire "
+                          f"{h['n_chunks']} {h['wire_bytes']} against {wan}")
+                    if algo != "psum":
+                        check((h["sent_bytes"] > 0) == gw,
+                              f"{tag} rank {p}: WAN-stage bytes {h['sent_bytes']} "
+                              f"(gateway: {gw})")
+                la = r["launches"]
+                want_q = want_dq = 0
+                if codec == "int8" and gw:
+                    for h in r["history"]:
+                        dirs = ring_calls(h["chunk_sizes"], len(gateways), algo)[0]
+                        want_q += len(gateways) * dirs
+                        want_dq += (2 * len(gateways) - 1) * dirs
+                check(not kernels or (la["quant_int8"] == want_q
+                                      and la["dequant_int8"] == want_dq),
+                      f"{tag} rank {p}: quant {want_q} and dequant {want_dq} "
+                      f"launches expected, got {la}")
+            row["plans"] = want
+            row["quant_dequant_by_rank"] = [[r["launches"]["quant_int8"],
+                                             r["launches"]["dequant_int8"]] for r in runs]
+        out[name] = row
+        emit({"phase": "sites", "mesh": "2 sites x 2 pods x 1", "run": name, **row})
+    return out
+
+
+def phase_autotune(torch, out_dir: str, spec: dict = TRAINER_SPEC,
+                   kernels: bool = True) -> dict:
+    """Full-width qwen1.5-0.5b on 2 pods (two spawned ranks on the card),
+    int8 wire, ``Trainer(autotune_every=2)`` for 8 steps.  Checks: every
+    rank ran the same config at every step and noted the same retunes (the
+    tuners were fed the same, slowest, step time); at least one retune; the
+    replicas bit-identical after every step; exactly the first step of the
+    initial bundle and of each newly built one is fresh and none of them is
+    flagged a straggler; the stream groups created are the most streams a
+    step's plan used; the flash kernels and rmsnorm on both ranks, quant
+    and dequant once per chunk (the int8 psum).  Reports
+    the retunes, each config's step ms and any straggler flags."""
+    reps = _spawn(torch, _autotune_rank, 2, out_dir, spec, "autotune")
+    r0 = reps[0]
+    for r in reps[1:]:
+        for k in ("retunes", "streams_used", "stream_groups", "n_bundles"):
+            check(r[k] == r0[k], f"autotune: rank {r['rank']}'s {k} {r[k]} is rank 0's {r0[k]}")
+        for a, b in zip(r["history"], r0["history"]):
+            check(a["config"] == b["config"] and a["tuner_s"] == b["tuner_s"],
+                  f"autotune: step {a['step']} ran {a['config']} on rank "
+                  f"{r['rank']}, {b['config']} on rank 0")
+    hist = r0["history"]
+    check(len(r0["retunes"]) >= 1, "autotune: at least one retune")
+    sums = [[h["checksum"] for h in r["history"]] for r in reps]
+    check(sums[0] == sums[1], f"autotune: replicas bit-identical {sums}")
+    seen, fresh = set(), []
+    for h in hist:
+        key = json.dumps(h["config"], sort_keys=True)
+        fresh.append(key not in seen)
+        seen.add(key)
+    for r in reps:
+        check([h["fresh"] for h in r["history"]] == fresh,
+              f"autotune: first steps of new bundles {fresh}")
+        check(not any(h["straggler"] for h in r["history"] if h["fresh"]),
+              f"autotune rank {r['rank']}: a new bundle's first step was flagged")
+        check(all(math.isfinite(h["loss"]) for h in r["history"]),
+              "autotune: finite losses")
+        _kernels_ran(r["launches"], f"autotune rank {r['rank']}", kernels)
+        # the int8 psum: one quant and one dequant launch per chunk
+        n = sum(h["n_chunks"] for h in r["history"])
+        la = r["launches"]
+        check(not kernels or la["quant_int8"] == la["dequant_int8"] == n,
+              f"autotune rank {r['rank']}: quant and dequant {n} launches "
+              f"expected, got {la}")
+    check(r0["stream_groups"] == max(r0["streams_used"]),
+          f"autotune: {r0['stream_groups']} stream groups, most streams used "
+          f"{max(r0['streams_used'])}")
+    by_cfg: dict = {}
+    for h in hist:
+        if not h["fresh"]:
+            by_cfg.setdefault(json.dumps(h["config"], sort_keys=True), []).append(
+                1e3 * h["time_s"])
+    out = {"retunes": r0["retunes"], "tune_bucket": r0["tune_bucket"],
+           "configs_by_step": [h["config"] for h in hist],
+           "step_ms_by_rank": [[1e3 * h["time_s"] for h in r["history"]] for r in reps],
+           "tuner_ms": [1e3 * h["tuner_s"] for h in hist],
+           "step_ms_by_config": by_cfg, "streams_used": r0["streams_used"],
+           "stream_groups": r0["stream_groups"], "n_bundles": r0["n_bundles"],
+           "losses": [h["loss"] for h in hist], "checksums": sums[0],
+           "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in reps],
+           "stragglers_flagged": [r["flagged"] for r in reps],
+           "launches_rank0": r0["launches"]}
+    emit({"phase": "autotune", "mesh": "2x1", **out})
+    return out
+
+
 def _demangle(names: list[str]) -> list[str]:
     """`void (anonymous namespace)::k<128, 4>(...)` -> `k<128, 4>`, by
     c++filt where the toolkit has it; the mangled names otherwise."""
@@ -1280,8 +1635,9 @@ def main() -> int:
                   **phase_profile(torch, dev, cfg, params)})
         del params
         torch.cuda.empty_cache()
-    train, zero, bkt, ring = {}, {}, {}, {}
-    if any(p in phases for p in ("train", "zero", "buckets", "ring")):
+    train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}
+    if any(p in phases for p in ("train", "zero", "buckets", "ring", "sites",
+                                 "autotune")):
         import tempfile
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
             if "train" in phases:
@@ -1292,6 +1648,10 @@ def main() -> int:
                 bkt = phase_buckets(torch, d, zero)
             if "ring" in phases:
                 ring = phase_ring(torch, d)
+            if "sites" in phases:
+                sites = phase_sites(torch, d)
+            if "autotune" in phases:
+                tune = phase_autotune(torch, d)
     if krows and ring:
         wire = phase_kernels_ring(torch, dev, ring["ring_int8"]["top_wire_shape"])
         for name, row in wire.items():
@@ -1305,6 +1665,8 @@ def main() -> int:
         on_pods = train.get("int8", {}).get("launches_rank0", {})
         on_bkt = bkt.get("int8", {}).get("launches_rank0", {})
         on_ring = ring.get("ring_int8", {}).get("launches_rank0", {})
+        on_sites = sites.get("ring_int8", {}).get("launches_rank0", {})
+        on_tune = tune.get("launches_rank0", {})
         for name, source, replaces, tol in KERNELS:
             # the row at the training path's shape
             main_row = next(r for r in krows[name] if r.get("on_path") == "train")
@@ -1315,6 +1677,8 @@ def main() -> int:
                          "launches_pods_2x1": on_pods.get(name, 0),
                          "launches_buckets_2x2": on_bkt.get(name, 0),
                          "launches_ring_3x1": on_ring.get(name, 0),
+                         "launches_sites_ring_int8_gateway": on_sites.get(name, 0),
+                         "launches_autotune_2x1": on_tune.get(name, 0),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
                          **({"ring_wire_block": ring_row} if ring_row else {}),
                          "max_abs_err": main_row["max_abs_err"],

@@ -29,9 +29,12 @@ Within the cross-pod stage each chunk's all-reduce is the algorithm
 when compressed: per-pod wire bytes grow linearly in pod count), "ring" and
 "ring2" the bandwidth-optimal point-to-point rings of
 :mod:`repro_torch.core.ring` (int8 requantized per hop; ring2 bidirectional).
+With ``site_groups`` the stage is site-hierarchical
+(:func:`site_allreduce`): the pods of a site sum first over their site's
+group, then only the site gateways' sums cross the WAN.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``site_groups``, ``subgroup`` and multi-hop paths.
+Multi-hop paths are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -66,6 +69,15 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     and the rings of a wave advance hop by hop together.  The traffic plan is
     noted in telemetry as the JAX package notes it.
 
+    With `site_groups` (lists of pod indices, one per site, from
+    ``Topology.pod_groups``) the sync is :func:`site_allreduce`.
+    `subgroup` (pod indices: the site gateways) scopes the exchange: a ring
+    runs among its members only (a rank outside posts nothing, sends 0
+    bytes and keeps its values, which the caller masks), a psum still runs
+    over the whole pod group on values the caller masked; either way the
+    modeled wire is the members' ring averaged over the pod axis, as only
+    they carry WAN traffic.
+
     `chunks` overrides the planner.  `log`, a list, receives one dict per
     chunk: leaf, dim, start, size, stream, payload_bytes (f32 bytes of the
     chunk), wire_bytes (the modeled per-pod link bytes of the chunk that was
@@ -76,27 +88,33 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     algo = path.comm.algo
     if algo not in ALGOS:
         raise ValueError(f"unknown comm algo {algo!r}; have {ALGOS}")
-    if site_groups is not None or subgroup:
-        raise queued("site groups and gateway subgroups",
-                     "site groups")
     if path.hops:
         raise queued("multi-hop paths (Forwarder routes)",
                      "facade, relays, files, checkpoints")
     if mesh is None or mesh.pod_group is None:
         return tree   # axis absent (single pod): nothing to cross
+    if site_groups is not None:
+        return site_allreduce(tree, path, mesh, site_groups, dims=dims,
+                              chunks=chunks, tel_key=tel_key, log=log)
     leaves, td = flatten(tree)
     dim_list = st.normalize_dims(leaves, dims)
     if chunks is None:
         chunks = st.plan_chunks(leaves, dim_list, path.chunk_bytes)
     buckets = st.assign_streams(chunks, path.streams)
     world = mesh.pod
+    members = [int(p) for p in subgroup] if subgroup else None
+    eff_world = len(members) if members else world
     compress = path.comm.compress
-    wire = wire_bytes_per_pod(sum(c.nbytes for c in chunks), world,
-                              algo=algo, compress=compress)
+    # only the members carry WAN traffic: their ring, averaged over the axis
+    share = eff_world / world
+    wire = wire_bytes_per_pod(sum(c.nbytes for c in chunks), eff_world,
+                              algo=algo, compress=compress) * share
     tel.note_plan(tel_key or path.key, **st.plan_summary(
         chunks, buckets, path.streams, path.chunk_bytes, path.comm.pacing,
-        algo=algo, world=world, compress=compress,
+        algo=algo, world=eff_world, compress=compress,
         wire_bytes=int(round(wire))))
+    # a rank outside a ring's subgroup posts nothing
+    idle = algo != "psum" and members is not None and mesh.pod_index not in members
 
     # pacing: only ceil(streams * pacing) streams in flight per wave
     pace = max(0.0, min(1.0, float(path.comm.pacing)))
@@ -108,14 +126,17 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
         wave = [(c, s, st.slice_chunk(leaves[c.leaf], c))
                 for s in range(w0, min(w0 + per_wave, len(buckets)))
                 for c in buckets[s]]
-        if algo == "psum":
+        if idle:
+            landed = [(x, 0) for _, _, x in wave]
+        elif algo == "psum":
             issued = [comp.reduce_start(x, c.dim, groups[s], compress)
                       for c, s, x in wave]
             landed = [(p.finish(), p.sent_bytes) for p in issued]
         else:
             landed = rg.drive(rg.lockstep([
                 rg.allreduce_steps(x, c.dim, groups[s], compress=compress,
-                                   bidirectional=algo == "ring2", tag=2 * k)
+                                   bidirectional=algo == "ring2", tag=2 * k,
+                                   members=members)
                 for k, (c, s, x) in enumerate(wave)]))
         # the wave has landed before the next one starts
         for (c, s, x), (r, sent) in zip(wave, landed):
@@ -125,13 +146,69 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
                             "size": c.size, "stream": s,
                             "payload_bytes": c.nbytes,
                             "wire_bytes": wire_bytes_per_pod(
-                                x.numel() * x.element_size(), world,
-                                algo=algo, compress=compress),
+                                x.numel() * x.element_size(), eff_world,
+                                algo=algo, compress=compress) * share,
                             "sent_bytes": sent})
 
     out = [st.stitch_leaf(leaf, done[i]) if done[i] else leaf
            for i, leaf in enumerate(leaves)]
     return unflatten(td, out)
+
+
+def site_allreduce(tree, path: WidePath, mesh, site_groups, dims=None,
+                   chunks=None, tel_key=None, log=None):
+    """Topology-aware hierarchical psum over the pod axis: reduce intra-site
+    before crossing the slow hop, as the reference's ``site_allreduce``.
+
+    `site_groups` partitions the pod indices into sites (from
+    ``Topology.pod_groups``).  Three stages:
+
+      1. **intra-site reduce**: the rank-order sum over this rank's site
+         group (``PodMesh.site_group``; two pods a site sum as the
+         reference does, bit for bit);
+      2. **gateway mask**: only the first pod of each site keeps its value;
+      3. **cross-site exchange** with the path's knobs.  ``algo="ring"`` /
+         ``"ring2"``: the chunked, streamed ring among the gateways only
+         (the other pods post nothing), then the masked intra-site sum as
+         the broadcast.  ``algo="psum"``: the chunked, streamed psum of the
+         gateway-masked values over the whole pod group, which doubles as
+         the in-site broadcast.
+
+    The stages' plans land under ``{key}/intra`` and ``{key}/wan``; the
+    ``/wan`` wire bytes are the gateways' ring averaged over the axis for
+    both algorithms (S of P pods carry the WAN bytes).  `chunks` plans the
+    WAN stage; `log` takes its chunks (:func:`streamed_psum`)."""
+    groups = [list(g) for g in site_groups]
+    if len({len(g) for g in groups}) > 1:
+        raise ValueError(
+            f"site_allreduce needs equal pods per site, got sizes "
+            f"{[len(g) for g in groups]}; give every site the same n_pods "
+            f"(routing/forwarding has no such constraint)")
+    if mesh is None or mesh.pod_group is None:
+        return tree
+    leaves, td = flatten(tree)
+    dim_list = st.normalize_dims(leaves, dims)
+    key = tel_key or path.key
+    site = mesh.site_group(groups)
+    reduced = [psum_group(l, site) for l in leaves]
+    intra = st.plan_chunks(leaves, dim_list, path.chunk_bytes)
+    tel.note_plan(f"{key}/intra", **st.plan_summary(
+        intra, st.assign_streams(intra, 1), 1, path.chunk_bytes, 1.0,
+        world=len(groups[0])))
+    if len(groups) == 1:
+        return unflatten(td, reduced)          # one site: no WAN hop
+    gateways = [g[0] for g in groups]
+    is_gw = mesh.pod_index in gateways
+    mask = lambda l: l if is_gw else torch.zeros_like(l)
+    if path.comm.algo in ("ring", "ring2"):
+        exchanged = streamed_psum(unflatten(td, reduced), path, mesh,
+                                  dims=dim_list, tel_key=f"{key}/wan",
+                                  subgroup=gateways, chunks=chunks, log=log)
+        return unflatten(td, [psum_group(mask(l), site)
+                              for l in flatten(exchanged)[0]])
+    return streamed_psum(unflatten(td, [mask(l) for l in reduced]), path,
+                         mesh, dims=dim_list, tel_key=f"{key}/wan",
+                         subgroup=gateways, chunks=chunks, log=log)
 
 
 # ---------------------------------------------------------------------------
@@ -188,15 +265,11 @@ def flat_allreduce(tree, mesh):
     return unflatten(td, [p.finish() for p in pending])
 
 
-def hierarchical_allreduce(tree, path: WidePath, mesh, dims,
-                           keep_scattered: bool = False, site_groups=None,
-                           log=None):
-    """RS(data) -> streamed cross-pod psum -> AG(data).
-
-    `dims` is the per-leaf scatter-dim tree (``param.tree_fsdp_dims``).  A
-    leaf whose dim is None, or does not divide over the data ranks, is
-    psummed over data instead.  With `keep_scattered` the final all-gather is
-    skipped (ZeRO: the optimizer updates shards)."""
+def _around_pod(tree, mesh, dims, keep_scattered: bool, cross):
+    """RS(data) -> cross(scattered leaves, their dims) -> AG(data): the
+    in-pod stages around a cross-pod one.  A leaf whose dim is None, or
+    does not divide over the data ranks, is psummed over data instead; with
+    `keep_scattered` the final all-gather is skipped."""
     group = None if mesh is None else mesh.data_group
     leaves, td = flatten(tree)
     dim_list = flatten(dims)[0] if dims is not None else [None] * len(leaves)
@@ -209,14 +282,45 @@ def hierarchical_allreduce(tree, path: WidePath, mesh, dims,
             return psum_group(g, group)
         return reduce_scatter_dim(g, d, group)
 
-    scat = [rs(g, d) for g, d in zip(leaves, dim_list)]
-    synced = flatten(streamed_psum(unflatten(td, scat), path, mesh,
-                                   dims=dim_list, site_groups=site_groups,
-                                   log=log))[0]
+    synced = cross([rs(g, d) for g, d in zip(leaves, dim_list)], dim_list)
     if keep_scattered or group is None:
         return unflatten(td, synced)
     return unflatten(td, [all_gather_dim(g, d, group) if g.shape != g0.shape
                           else g for g, g0, d in zip(synced, leaves, dim_list)])
+
+
+def hierarchical_allreduce(tree, path: WidePath, mesh, dims,
+                           keep_scattered: bool = False, site_groups=None,
+                           log=None):
+    """RS(data) -> streamed cross-pod psum -> AG(data).
+
+    `dims` is the per-leaf scatter-dim tree (``param.tree_fsdp_dims``).  A
+    leaf whose dim is None, or does not divide over the data ranks, is
+    psummed over data instead.  With `keep_scattered` the final all-gather is
+    skipped (ZeRO: the optimizer updates shards)."""
+    return _around_pod(tree, mesh, dims, keep_scattered, lambda scat, dim_list:
+                       streamed_psum(scat, path, mesh, dims=dim_list,
+                                     site_groups=site_groups, log=log))
+
+
+def local_site_allreduce(tree, path: WidePath, mesh, dims,
+                         keep_scattered: bool = False, site_groups=None):
+    """The local-SGD step sync: RS(data) -> *intra-site* pod sum -> AG(data),
+    as :func:`hierarchical_allreduce` but the cross-pod stage never leaves
+    the site: each site's pods sum in rank order over their site group, so
+    the sites diverge until a delta sync merges them.  Without
+    `site_groups` the whole pod axis is one site (a full sync, summed in
+    rank order over the pod group).  No chunks and no WAN bytes."""
+    pods = None if mesh is None else mesh.pod_group
+    if pods is not None and site_groups is not None:
+        groups = [list(g) for g in site_groups]
+        if len({len(g) for g in groups}) > 1:
+            raise ValueError(
+                f"local_site_allreduce needs equal pods per site, got sizes "
+                f"{[len(g) for g in groups]}")
+        pods = mesh.site_group(groups)
+    return _around_pod(tree, mesh, dims, keep_scattered, lambda scat, _:
+                       [psum_group(g, pods) for g in scat])
 
 
 def gateway_allreduce(tree, path: WidePath, mesh, log=None):

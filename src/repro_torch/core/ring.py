@@ -26,8 +26,12 @@ dequantize run on the chunk's device.  A chain is a generator that posts a
 hop, yields its works, and resumes once they have completed;
 :func:`lockstep` advances many chains together (the halves of ``ring2``,
 every chunk of a wave of :func:`repro_torch.core.collectives.streamed_psum`),
-so their hops are in flight at once.  Subgroup rings (site gateways) are
-queued (ROADMAP.md queue A, 'site groups').
+so their hops are in flight at once.
+
+A subgroup ring (the site gateways' exchange) runs among the members only:
+its peers are the members' global ranks in the same group (point-to-point
+operations need no group of their own), and a rank outside the subgroup
+posts nothing.
 """
 from __future__ import annotations
 
@@ -113,18 +117,24 @@ def _recv_like(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 
 class _Link:
-    """One direction of a ring over `group`: this rank sends to the member
-    `shift` positions on and receives from the one `shift` positions back.
-    `sent` counts the bytes this rank handed to the group."""
+    """One direction of a ring over `group`, or over its `members` (group
+    ranks, in ring order) when given: this rank sends to the member `shift`
+    positions on and receives from the one `shift` positions back.  `sent`
+    counts the bytes this rank handed to the group."""
 
-    def __init__(self, group, shift: int, tag: int):
+    def __init__(self, group, shift: int, tag: int, members=None):
+        if members is None:
+            members = range(dist.get_world_size(group))
+        members = [int(m) for m in members]
         self.group = group
-        self.world = dist.get_world_size(group)
-        self.pos = dist.get_rank(group)
+        self.world = len(members)
+        self.pos = members.index(dist.get_rank(group))
         self.shift = shift
         self.tag = tag
-        self.dst = dist.get_global_rank(group, (self.pos + shift) % self.world)
-        self.src = dist.get_global_rank(group, (self.pos - shift) % self.world)
+        self.dst = dist.get_global_rank(
+            group, members[(self.pos + shift) % self.world])
+        self.src = dist.get_global_rank(
+            group, members[(self.pos - shift) % self.world])
         self.sent = 0
 
     def post(self, sends: list, recvs: list) -> list:
@@ -254,32 +264,43 @@ def drive(chain: Chain):
 # ---------------------------------------------------------------------------
 
 def allreduce_steps(x: torch.Tensor, dim: int, group, *, compress: str = "none",
-                    bidirectional: bool = False, tag: int = 0) -> Chain:
-    """The chain of a ring all-reduce of `x` over `group`, segmented along
-    `dim`; returns (the reduced x in x's dtype, the bytes this rank sent).
-    `tag` (and tag + 1 for the second direction) tells this chain's hops
-    from those of other chains posted beside it on the same group."""
+                    bidirectional: bool = False, tag: int = 0,
+                    members=None) -> Chain:
+    """The chain of a ring all-reduce of `x` over `group` (over its
+    `members`, group ranks, when given: only they may run the chain),
+    segmented along `dim`; returns (the reduced x in x's dtype, the bytes
+    this rank sent).  `tag` (and tag + 1 for the second direction) tells
+    this chain's hops from those of other chains posted beside it on the
+    same group."""
     if compress not in WIRE_FACTOR:
         raise ValueError(f"unknown wire codec {compress!r}; have "
                          f"{sorted(WIRE_FACTOR)}")
     if x.dim() == 0:
-        # scalars have no dim to segment and nothing to save: the rank-order
-        # sum of the gathered values
-        out, work = comp._gather(x, group)
-        yield [work]
-        return (comp._rank_sum(out.to(x.device)).to(x.dtype),
-                x.element_size())
+        # scalars have no dim to segment and nothing to save: the sum of
+        # every member's value in rank order, gathered over the group or,
+        # for a subgroup, around its ring
+        if members is None:
+            out, work = comp._gather(x, group)
+            yield [work]
+            return (comp._rank_sum(out.to(x.device)).to(x.dtype),
+                    x.element_size())
+        link = _Link(group, +1, tag, members)
+        y = x.reshape(1).float()
+        out = yield from _ag_chain(
+            y, y.new_zeros((link.world, 1)), link, "none")
+        return comp._rank_sum(out).reshape(()).to(x.dtype), link.sent
     d = dim % x.dim()
     y = x.movedim(d, 0)
     n = y.shape[0]
     if bidirectional and n >= 2:
         half = n // 2
-        fwd, bwd = _Link(group, +1, tag), _Link(group, -1, tag + 1)
+        fwd = _Link(group, +1, tag, members)
+        bwd = _Link(group, -1, tag + 1, members)
         a, b = yield from lockstep([_allreduce_1d(y[:half], fwd, compress),
                                     _allreduce_1d(y[half:], bwd, compress)])
         z, sent = torch.cat([a, b], 0), fwd.sent + bwd.sent
     else:
-        link = _Link(group, +1, tag)
+        link = _Link(group, +1, tag, members)
         z = yield from _allreduce_1d(y, link, compress)
         sent = link.sent
     return z.movedim(0, d).to(x.dtype), sent
@@ -291,14 +312,21 @@ def ring_allreduce(x: torch.Tensor, dim: int, group, *, compress: str = "none",
     """Bandwidth-optimal all-reduce of `x` over `group`, segmented along
     `dim` (the leaf's scatter dim).  `bidirectional` is the "ring2"
     algorithm.  Any world size >= 2 (odd rings pad the extent to a multiple
-    of the world); a group of one (None) returns `x`."""
-    if subgroup is not None:
-        from repro_torch.core.collectives import queued
-        raise queued("subgroup rings (site gateways)", "site groups")
-    if group is None or dist.get_world_size(group) <= 1:
+    of the world); a group of one (None) returns `x`.  `subgroup` (group
+    ranks: pod indices on a pod group) restricts the ring to its members;
+    a rank outside it posts nothing and gets `x` back, which the caller
+    masks (the site gateways' exchange,
+    :func:`repro_torch.core.collectives.site_allreduce`)."""
+    if group is None:
+        return x
+    members = None if subgroup is None else [int(m) for m in subgroup]
+    world = dist.get_world_size(group) if members is None else len(members)
+    if world <= 1 or (members is not None
+                      and dist.get_rank(group) not in members):
         return x
     return drive(allreduce_steps(x, dim, group, compress=compress,
-                                 bidirectional=bidirectional))[0]
+                                 bidirectional=bidirectional,
+                                 members=members))[0]
 
 
 def ring_reduce_scatter(x: torch.Tensor, dim: int, group, *,

@@ -10,7 +10,10 @@ the groups of its axes:
   reduce-scatters, the in-pod stages of the hierarchical and gateway modes);
 * the pod group, the ranks of its data index, one per pod (the WAN axis);
 * the world group (the flat mode);
-* once asked for, one process group per WidePath stream over its pod group.
+* once asked for, one process group per WidePath stream over its pod group;
+* once asked for, with site groups (``core/topology.py``
+  ``Topology.pod_groups``), the group over the pods of its site (the
+  intra-site stage of :func:`repro_torch.core.collectives.site_allreduce`).
 
 Every group is created on every rank in one fixed order, once per mesh,
 never per step: ``dist.new_group`` is collective over the whole world, so a
@@ -23,6 +26,7 @@ production meshes'), and so are NCCL groups across cards.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -43,7 +47,9 @@ class PodMesh:
     pod_group: Optional[object] = None       # this data index's pods; None with one pod
     data_group: Optional[object] = None      # this pod's data ranks; None with one
     world_group: Optional[object] = None     # every rank; None with one
+    timeout: Optional[timedelta] = None      # of every group; None: gloo's default
     _streams: list = field(default_factory=list, repr=False)
+    _sites: dict = field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -75,6 +81,11 @@ class PodMesh:
             return self.world_group
         return self.pod_group if axes == ("pod",) else self.data_group
 
+    @property
+    def n_streams(self) -> int:
+        """The stream groups created so far (each data index's)."""
+        return len(self._streams)
+
     def stream_groups(self, n: int) -> list:
         """This data index's first `n` stream groups over its pod group,
         created the first time they are asked for.  Every rank runs the same
@@ -84,16 +95,41 @@ class PodMesh:
             return []
         while len(self._streams) < n:
             for d in range(self.data):
-                g = dist.new_group(self.pod_ranks(d), backend=BACKEND)
+                g = self._new_group(self.pod_ranks(d))
                 if d == self.data_index:
                     self._streams.append(g)
         return self._streams[:n]
 
+    def site_group(self, site_groups) -> Optional[object]:
+        """This rank's group over the pods of its site (`site_groups`: lists
+        of pod indices, one per site), or None when its site has one pod.
+        Created the first time a layout is asked for: for each data index,
+        one group per site of two or more pods, in site order.  Every rank
+        runs the same sync, so every rank asks for the same layouts in the
+        same order."""
+        key = tuple(tuple(int(p) for p in g) for g in site_groups)
+        if key not in self._sites:
+            mine = None
+            for d in range(self.data):
+                for site in key:
+                    if len(site) < 2:
+                        continue
+                    g = self._new_group([p * self.data + d for p in site])
+                    if d == self.data_index and self.pod_index in site:
+                        mine = g
+            self._sites[key] = mine
+        return self._sites[key]
+
+    def _new_group(self, ranks: list):
+        return dist.new_group(ranks, backend=BACKEND, timeout=self.timeout)
+
 
 def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *,
-                    device="cuda") -> PodMesh:
+                    device="cuda", timeout: Optional[timedelta] = None) -> PodMesh:
     """A mesh over the ranks of the default process group (which must exist
-    when ``pod * data * model > 1``), this rank on `device`."""
+    when ``pod * data * model > 1``), this rank on `device`.  `timeout`
+    bounds each collective of the mesh's groups (a new group does not take
+    the default group's)."""
     if model != 1:
         raise queued(f"model = {model} (tensor parallelism)",
                      "tensor parallelism and the production meshes")
@@ -101,7 +137,7 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *,
     if pod < 1 or data < 1 or n < 1:
         raise ValueError(f"mesh of pod={pod} data={data} model={model} has no rank")
     mesh = PodMesh(pod=pod, data=data, model=model, rank=0,
-                   device=torch.device(device))
+                   device=torch.device(device), timeout=timeout)
     if n == 1:
         return mesh
     if not dist.is_initialized():
@@ -113,17 +149,17 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *,
     mesh.rank = dist.get_rank()
     # one fixed order on every rank: world, the data groups by pod, the pod
     # groups by data index; an axis that spans the world uses its group
-    mesh.world_group = dist.new_group(list(range(n)), backend=BACKEND)
+    mesh.world_group = mesh._new_group(list(range(n)))
     if data > 1:
         for p in range(pod):
             g = (mesh.world_group if pod == 1 else
-                 dist.new_group([p * data + d for d in range(data)], backend=BACKEND))
+                 mesh._new_group([p * data + d for d in range(data)]))
             if p == mesh.pod_index:
                 mesh.data_group = g
     if pod > 1:
         for d in range(data):
             g = (mesh.world_group if data == 1 else
-                 dist.new_group(mesh.pod_ranks(d), backend=BACKEND))
+                 mesh._new_group(mesh.pod_ranks(d)))
             if d == mesh.data_index:
                 mesh.pod_group = g
     return mesh

@@ -26,7 +26,9 @@ As the JAX launcher, the CLI has no flag for ``CommConfig.algo`` or
 
 The JAX launcher's checkpoint, production-mesh, route, chaos, local-SGD and
 membership flags are not ported yet and stop the launcher naming their
-ROADMAP item.  ``--check-replicas`` compares every pod's parameters after
+ROADMAP item; ``--ckpt-every`` (the cadence, given to the trainer) and
+``--lease-steps`` (read with ``--coordinator`` alone) are accepted, as the
+JAX launcher accepts them without ``--ckpt-dir`` and ``--coordinator``.  ``--check-replicas`` compares every pod's parameters after
 every step, ``--report`` writes each rank's run as JSON (history, kernel
 launches, the sync plan, peak device memory), ``--profile-step`` runs one
 step of rank 0 under ``torch.profiler``.
@@ -100,6 +102,7 @@ def parser() -> argparse.ArgumentParser:
     # the JAX launcher's flags that wait for later slices
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--replica-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--route", default=None)
@@ -107,6 +110,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos-drop", type=int, default=None)
     ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--lease-steps", type=int, default=4)
     return ap
 
 
@@ -179,7 +183,8 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
                                     global_batch=gb, kind=args.data,
                                     path=args.data_path))
     say = print if rank == 0 else (lambda *_: None)
-    trainer = Trainer(rc, mesh, check_replicas=args.check_replicas)
+    trainer = Trainer(rc, mesh, ckpt_every=args.ckpt_every,
+                      check_replicas=args.check_replicas)
     path = trainer.bundle.path
     plan_b = trainer.bundle.bucket_plan
     say(f"[train] {args.arch} params={cfg.param_count():,} mesh={mesh.shape} "

@@ -19,12 +19,16 @@ jitted shard_map.
   with no wire codec each bucket's sync runs in the backward from a flush
   hook around its layer range (flush mode), with a codec the post-backward
   sync runs bucket by bucket (tail mode); AdamW takes the buckets one by
-  one.  Routes, site groups and local SGD are queued (ROADMAP.md queue A).
+  one.  With ``site_groups`` (``Topology.pod_groups``) the cross-pod stage
+  is site-hierarchical (``core/collectives.py`` ``site_allreduce``): the
+  pods of a site sum first, then only the site gateways cross the WAN.
+  Routes and local SGD are queued (ROADMAP.md queue A).
 * :func:`build_serve_step`: prefill / decode on one device, under
   ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
+import functools
 import inspect
 import time
 from contextlib import contextmanager
@@ -77,6 +81,7 @@ class StepBundle:
     dims: object = None                # per-leaf scatter dims of the stored state (ZeRO), else None
     zero: bool = False
     bucket_plan: object = None         # BucketPlan when the sync is bucketed
+    replan: Optional[Callable] = None  # re-notes this bundle's sync plan
 
     def init_state(self, seed: int = 0) -> dict:
         """Parameters from `seed` and a fresh optimizer state, on the
@@ -212,16 +217,16 @@ def _note_path_plan(defs, dims, path: WidePath, shard: int, world: int = 1, *,
 
 
 def _make_flush_segments(defs, dims, path: WidePath, plan, mesh, shard: int,
-                         record):
+                         record, site_groups=None):
     """(layer bounds, one flush hook per bound) for the segmented layer loop.
 
     Each hook's backward casts its bucket's gradients (the stacked blocks'
     slices) to f32, sums the replicated leaves over the data group, runs the
     bucket's streamed psum under ``{key}/bkt{i}`` with each slice chunked in
-    its full leaf's rows, and rounds back to the leaf's dtype, as the
-    reference's ``_make_flush_segments`` does.  `record(i)` is a context
-    manager around bucket i's sync that yields the list its chunks are
-    logged into."""
+    its full leaf's rows (site-hierarchical with `site_groups`), and rounds
+    back to the leaf's dtype, as the reference's ``_make_flush_segments``
+    does.  `record(i)` is a context manager around bucket i's sync that
+    yields the list its chunks are logged into."""
     blocks_eff, blocks_dims = _eff_grad_leaves(defs["blocks"], dims["blocks"],
                                                shard)
     blocks_ndims = st.normalize_dims(blocks_eff, blocks_dims)
@@ -239,6 +244,7 @@ def _make_flush_segments(defs, dims, path: WidePath, plan, mesh, shard: int,
                 chunks = st.plan_chunks(gf, blocks_ndims, path.chunk_bytes,
                                         rows=rows_full)
                 synced = streamed_psum(gf, path, mesh, dims=blocks_dims,
+                                       site_groups=site_groups,
                                        tel_key=f"{path.key}/bkt{bi}",
                                        chunks=chunks, log=log)
             return unflatten(td, [s.to(l.dtype) for s, l in zip(synced, leaves)])
@@ -285,15 +291,25 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     in-pod stages' host seconds and calls (gather_s, gather_n,
     reduce_scatter_s, reduce_scatter_n; :func:`inpod_stats`); bucket_mode
     ("flush", "tail" or None) and buckets (per bucket: its sync seconds,
-    chunks, payload, wire and sent bytes; :func:`_bucket_rows`)."""
+    chunks, payload, wire and sent bytes; :func:`_bucket_rows`).
+
+    `site_groups` (lists of pod indices, one per site) must tile the pod
+    axis; with one pod there is nothing to group and they are dropped.
+    The bundle's ``replan`` re-notes its plan (a trainer swapping back to a
+    cached bundle calls it)."""
     if route is not None:
         raise queued("a multi-hop route", "facade, relays, files, checkpoints")
-    if site_groups is not None:
-        raise queued("site groups", "site groups")
     if local_only:
         raise queued("local SGD (local_steps > 1)", "topology, chaos and elasticity")
     if rc.comm.mode not in ("flat", "hierarchical", "gateway"):
         raise ValueError(f"unknown comm mode {rc.comm.mode!r}")
+    if site_groups is not None:
+        total = sorted(p for g in site_groups for p in g)
+        if mesh.pod == 1:
+            site_groups = None          # single pod: nothing to group
+        elif total != list(range(mesh.pod)):
+            raise ValueError(f"site_groups {site_groups} must tile the pod "
+                             f"axis of size {mesh.pod}")
     dev = resolve_device(mesh.device)
     model = build_model(rc.model)
     defs = model.param_defs()
@@ -335,10 +351,12 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
         if not plan.layer_buckets:
             bucketed = use_flush = False
             plan = stacked_flags = None
+    replan = None
     if rc.comm.mode != "flat":
-        _note_path_plan(defs, dims, path, shard, pod_world,
-                        stacked_flags=stacked_flags, window=window,
-                        m_micro=m_micro)
+        replan = functools.partial(_note_path_plan, defs, dims, path, shard,
+                                   pod_world, stacked_flags=stacked_flags,
+                                   window=window, m_micro=m_micro)
+        replan()
     inpod = inpod_stats()
     gather_layer, gather_top = _make_gather(defs, dims, zero, mesh.data_group,
                                             inpod)
@@ -363,7 +381,8 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
         cur["log"] += log
 
     flush_segments = (_make_flush_segments(defs, dims, path, plan, mesh, shard,
-                                           record) if use_flush else None)
+                                           record, site_groups)
+                      if use_flush else None)
     rest_keys = [k for k in defs if k != "blocks"]
 
     def grad_fn(params, mb):
@@ -394,19 +413,22 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
             with record(i) as log:
                 rest = streamed_psum(psum_replicated(rest, rest_dims), path,
                                      mesh, dims=rest_dims, log=log,
+                                     site_groups=site_groups,
                                      tel_key=f"{path.key}/bkt{i}")
             return {**rest, "blocks": grads["blocks"]}
         if bucketed:
             with record() as log:
                 return bk.bucketed_sync(
                     psum_replicated(grads, dims), path, mesh,
-                    stacked=stacked_tree, dims=dims, log=log,
-                    timer=lambda i: record(i, total=False))
+                    stacked=stacked_tree, dims=dims, site_groups=site_groups,
+                    log=log, timer=lambda i: record(i, total=False))
         with record() as log:
             if zero:   # only the 1/D shards cross the pod axis
                 return streamed_psum(psum_replicated(grads, dims), path, mesh,
-                                     dims=dims, log=log)
-            return wide_allreduce(grads, path, mesh, dims=dims, log=log)
+                                     dims=dims, site_groups=site_groups,
+                                     log=log)
+            return wide_allreduce(grads, path, mesh, dims=dims,
+                                  site_groups=site_groups, log=log)
 
     def fn(state: dict, batch: dict):
         params = state["params"]
@@ -441,7 +463,7 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
 
     return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
                       device=dev, mesh=mesh, dims=dims if zero else None,
-                      zero=zero, bucket_plan=plan)
+                      zero=zero, bucket_plan=plan, replan=replan)
 
 
 def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,
