@@ -83,6 +83,26 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             retune, replicas bit-identical, the first step of each new
             bundle kept out of the straggler detector, stream groups the
             most streams used; the retunes and each config's step ms.
+13. route   the Trainer on 4 pods of the CosmoGrid topology (``core/
+            topology.py``), the gradient sync over the 2-hop tokyo ->
+            amsterdam -> espoo Forwarder route with int8, 3 steps, then the
+            plain 4-pod int8 run: replicas bit-identical, step 1's loss the
+            plain run's, the per-hop plans the host planner's, per-hop
+            samples, quant and dequant once per chunk;
+14. ckpt    the route run with checkpoints every 2 steps (keep 1), the
+            replica shipped over the route with mpw-cp, and a fault on one
+            rank at step 3: every rank restores the step-2 checkpoint
+            (its checksum the saved one's), the recovered steps equal a
+            fresh Trainer's replay of the same checkpoint and batches bit for
+            bit, the replica's files the primary's sha256, a restore from
+            the replica once the primary is gone; save, replicate and
+            restore seconds and the per-hop wire bytes;
+15. facade  one ``MPW`` session a rank on the 4-pod mesh: SendRecv, Cycle,
+            Relay and Forward (both ways) over the tokyo -> espoo Forwarder
+            of a full-width f32 tree, SendRecv and ISendRecv/Wait over one
+            link, DSendRecv, Barrier, the int8 AllReduce against the plain
+            sum; FileCopy of the ckpt phase's checkpoint along the route,
+            failing its CRC first, then resumed; each verb's GB/s.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -90,6 +110,7 @@ Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -97,6 +118,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -105,7 +127,7 @@ PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
 PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train", "zero",
-          "buckets", "ring", "sites", "autotune")
+          "buckets", "ring", "sites", "autotune", "route", "ckpt", "facade")
 CODECS = ("none", "bf16", "int8")
 
 
@@ -1546,6 +1568,724 @@ def phase_autotune(torch, out_dir: str, spec: dict = TRAINER_SPEC,
     return out
 
 
+# --- slice 9: routes, checkpoints and the MPW facade on the CosmoGrid topology
+
+ROUTE = ("tokyo", "espoo")   # no direct link: 2 hops through Amsterdam
+ROUTE_SHIFTS = [-1, 2]
+ROUTE_STEPS = 3
+CKPT_STEPS = 5
+CKPT_EVERY = 2
+CKPT_FAULT_STEP = 3
+CKPT_FAULT_RANK = 1          # one rank's hook raises; every rank recovers
+CKPT_BATCHES = 7             # steps 0-2, the failed step 3, steps 2-4 again
+FACADE_SEED = 1000
+
+
+def _say_failed(rank: int) -> None:
+    """Print a failing rank's traceback at once: its group going down makes
+    the other ranks fail too, and the spawner may report one of them."""
+    import traceback
+    print(f"chip_smoke: rank {rank} failed:\n{traceback.format_exc()}",
+          file=sys.stderr, flush=True)
+
+
+def _cosmogrid():
+    from repro_torch.core.topology import cosmogrid_topology
+    topo = cosmogrid_topology()
+    return topo, topo.route(*ROUTE)
+
+
+def _hop_rows(path) -> list:
+    """Each hop of a multi-hop path: its knobs, plan and telemetry samples."""
+    from repro_torch.core import telemetry as tel
+    rows = []
+    for i, h in enumerate(path.route):
+        pt = tel.get_telemetry().path(path.hop_key(i))
+        rows.append({"key": path.hop_key(i), "name": h.name, "shift": h.shift,
+                     "streams": h.streams, "chunk_bytes": h.chunk_bytes,
+                     "pacing": h.comm.pacing,
+                     "plan": None if pt.plan is None else dict(pt.plan.__dict__),
+                     "samples": pt.transfers, "total_bytes": pt.total_bytes})
+    return rows
+
+
+def _route_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One of 4 ranks (4 pods x 1 data rank, one pod a CosmoGrid site): a
+    Trainer over the tokyo -> espoo route with the topology's site groups,
+    int8, ROUTE_STEPS steps, then the plain 4-pod int8 run; writes its report."""
+    import torch
+    from repro_torch.configs import CommConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer
+    dist, dev, mesh = _rank_setup(torch, rank, 4, init, spec, pods=4)
+    try:
+        topo, route = _cosmogrid()
+        rep = {"rank": rank, "route": route.describe(), "runs": {}}
+        for name, routed in (("route_int8", True), ("plain_int8", False)):
+            rc = _trainer_rc(spec, 4, ROUTE_STEPS,
+                             CommConfig(mode="hierarchical", compress="int8"))
+            data = make_pipeline(DataConfig(vocab_size=rc.model.vocab_size,
+                                            seq_len=spec["seq_len"], global_batch=4),
+                                 prefetch=0)
+            tel.get_telemetry().reset()
+            tr = Trainer(rc, mesh, route=route if routed else None,
+                         site_groups=topo.pod_groups() if routed else None,
+                         check_replicas=True)
+            tr.init_or_restore(0)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            hist = tr.run(data, ROUTE_STEPS, log_every=0)
+            r = _run_record(torch, tr, dev, hist, ops.launch_counts())
+            path = tr.bundle.path
+            r["key"] = path.key
+            r["hops"] = _hop_rows(path) if path.hops else []
+            rep["runs"][name] = r
+            del tr
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(os.path.join(out, f"route.rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    except BaseException:
+        _say_failed(rank)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def hop_plans(spec: dict, hops: list) -> list:
+    """The per-hop plans of the route sync of `spec`'s model from the port's
+    planner on the host: the f32 gradients (no ZeRO at one data rank)
+    chunked with each hop's chunk bytes, balanced over its streams, every
+    hop carrying the whole payload once (``algo="shift"``)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import streams as st
+    from repro_torch.models import build_model
+    from repro_torch.runtime.step import _eff_grad_leaves
+    from repro_torch.sharding import tree_fsdp_dims
+    cfg = get_config(spec["arch"])
+    if spec["smoke"]:
+        cfg = smoke_config(cfg)
+    defs = build_model(cfg).param_defs()
+    leaves, dims = _eff_grad_leaves(defs, tree_fsdp_dims(defs, 1, 1), 1)
+    dims = st.normalize_dims(leaves, dims)
+    out = []
+    for h in hops:
+        chunks = st.plan_chunks(leaves, dims, h["chunk_bytes"])
+        out.append(st.plan_summary(chunks, st.assign_streams(chunks, h["streams"]),
+                                   h["streams"], h["chunk_bytes"], h["pacing"],
+                                   algo="shift"))
+    return out
+
+
+def phase_route(torch, out_dir: str, spec: dict = TRAINER_SPEC,
+                kernels: bool = True) -> dict:
+    """Full-width qwen1.5-0.5b as 4 pods x 1 data rank on the CosmoGrid
+    topology (four spawned ranks on the card), ``Trainer(route=tokyo ->
+    espoo, site_groups=topo.pod_groups())``, hierarchical with int8, 3
+    steps, then the plain 4-pod int8 run.  Checks: the route's hops are
+    tokyo -> amsterdam -> espoo with shifts [-1, 2]; replicas bit-identical
+    after every step; step 1's loss the plain run's bit for bit and steps
+    2-3 within SITE_LOSS_TOL of it; every rank's per-hop plans equal the
+    host planner's and each other's; each hop's ``train/hop{i}`` slot has a
+    sample of every step but the first; quant and dequant once per chunk
+    (the int8 psum) on every rank; the flash kernels and rmsnorm ran."""
+    t0 = time.perf_counter()
+    reps = _spawn(torch, _route_rank, 4, out_dir, spec, "route")
+    plain = reps[0]["runs"]["plain_int8"]["history"]
+    out = {"route": reps[0]["route"], "phase_s": time.perf_counter() - t0}
+    for name in ("route_int8", "plain_int8"):
+        runs = [rp["runs"][name] for rp in reps]
+        r0 = runs[0]
+        tag = f"route {name}"
+        sums = [[h["checksum"] for h in r["history"]] for r in runs]
+        check(all(s == sums[0] for s in sums), f"{tag}: replicas bit-identical {sums}")
+        losses = [h["loss"] for h in r0["history"]]
+        check(all(math.isfinite(x) for x in losses), f"{tag}: finite losses {losses}")
+        row = {"key": r0["key"], "losses": losses, "checksums": sums[0],
+               "streams": r0["streams"], "chunk_bytes": r0["chunk_bytes"],
+               "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in runs],
+               "launches_rank0": r0["launches"],
+               "by_rank": [_sync_stats(r["history"], p) for p, r in enumerate(runs)]}
+        for p, r in enumerate(runs):
+            _kernels_ran(r["launches"], f"{tag} rank {p}", kernels)
+            n = sum(h["n_chunks"] for h in r["history"])
+            la = r["launches"]
+            check(not kernels or la["quant_int8"] == la["dequant_int8"] == n,
+                  f"{tag} rank {p}: quant and dequant {n} launches expected, got {la}")
+        row["quant_dequant_by_rank"] = [[r["launches"]["quant_int8"],
+                                         r["launches"]["dequant_int8"]] for r in runs]
+        if name == "route_int8":
+            hops = r0["hops"]
+            check([h["shift"] for h in hops] == ROUTE_SHIFTS
+                  and [h["name"] for h in hops] == ["tokyo->amsterdam", "amsterdam->espoo"],
+                  f"{tag}: hops {[(h['name'], h['shift']) for h in hops]}")
+            want = hop_plans(spec, hops)
+            for p, r in enumerate(runs):
+                check([h["plan"] for h in r["hops"]] == want,
+                      f"{tag} rank {p}: hop plans {[h['plan'] for h in r['hops']]} "
+                      f"are the host planner's {want}")
+                check(all(h["samples"] == ROUTE_STEPS - 1 for h in r["hops"]),
+                      f"{tag} rank {p}: per-hop samples {[h['samples'] for h in r['hops']]}")
+            check(losses[0] == plain[0]["loss"],
+                  f"{tag}: step-1 loss {losses[0]} is the plain run's {plain[0]['loss']}")
+            gaps = [abs(a["loss"] - b["loss"]) for a, b in zip(r0["history"], plain)]
+            check(all(g <= SITE_LOSS_TOL for g in gaps),
+                  f"{tag}: losses within {SITE_LOSS_TOL} of the plain run's {gaps}")
+            row.update(hops=[{k: h[k] for k in ("name", "shift", "streams", "chunk_bytes",
+                                                 "pacing", "plan", "samples")}
+                             for h in hops], loss_gap_to_plain=gaps)
+        out[name] = row
+        emit({"phase": "route", "mesh": "4 pods x 1 (CosmoGrid)", "run": name,
+              "phase_s": out["phase_s"], **row})
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core.tree import flatten
+    return sum(x.numel() * x.element_size() for x in flatten(tree)[0])
+
+
+def _dir_sha(path: str) -> dict:
+    """{relative file name: sha256} of every file under `path`."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.filetransfer import file_sha256
+    names = sorted(os.path.relpath(os.path.join(r, f), path)
+                   for r, _, fs in os.walk(path) for f in fs)
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(names, pool.map(lambda n: file_sha256(os.path.join(path, n)),
+                                        names)))
+
+
+def _ckpt_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One of 4 ranks: the route_int8 Trainer with checkpoints every
+    CKPT_EVERY steps (keep 1), a replica shipped over the route, and a
+    fault at step CKPT_FAULT_STEP on rank CKPT_FAULT_RANK; then a fresh
+    Trainer on the checkpoint the recovery restored, fed the same batches;
+    then, the primary removed, a fresh Trainer restored from the replica."""
+    import torch
+    from repro_torch.configs import CommConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import InjectedFault, Trainer
+    from repro_torch.runtime.train_loop import replica_checksum
+    dist, dev, mesh = _rank_setup(torch, rank, 4, init, spec, pods=4)
+    home = spec.get("ckpt_home", out)
+    ckpt, replica = os.path.join(home, "ckpt"), os.path.join(home, "replica")
+    snap = os.path.join(home, "ckpt_at_fault")
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    try:
+        topo, route = _cosmogrid()
+        rc = _trainer_rc(spec, 4, CKPT_STEPS,
+                         CommConfig(mode="hierarchical", compress="int8"))
+        data = make_pipeline(DataConfig(vocab_size=rc.model.vocab_size,
+                                        seq_len=spec["seq_len"], global_batch=4),
+                             prefetch=0)
+        batches = [next(data) for _ in range(CKPT_BATCHES)]
+        fired = []
+
+        def hook(step):
+            if step == CKPT_FAULT_STEP and not fired:
+                fired.append(step)
+                if rank == CKPT_FAULT_RANK:
+                    raise InjectedFault(f"injected on rank {rank} at step {step}")
+
+        kw = dict(route=route, site_groups=topo.pod_groups(), check_replicas=True)
+        tel.get_telemetry().reset()
+        tr = Trainer(rc, mesh, ckpt_dir=ckpt, replica_dir=replica,
+                     ckpt_every=CKPT_EVERY, keep=1, fault_hook=hook, **kw)
+        tr.init_or_restore(0)
+        saved, restored, rep = {}, [], {"rank": rank}
+        save0, restore0 = tr._save, tr._restore
+
+        def save(block):
+            saved[tr.step] = replica_checksum(tr.state)
+            save0(block)
+
+        def restore():
+            sync()
+            t0 = time.perf_counter()
+            ok = restore0()
+            sync()
+            restored.append({"step": tr.step, "s": time.perf_counter() - t0,
+                             "checksum": replica_checksum(tr.state)})
+            if rank == 0:   # keep the checkpoint the recovery read for the replay
+                shutil.copytree(tr.manager.path(tr.step),
+                                os.path.join(snap, os.path.basename(tr.manager.path(tr.step))),
+                                copy_function=os.link)
+            return ok
+
+        tr._save, tr._restore = save, restore
+        if rank == 0:
+            rep0 = tr.manager.replicate_now
+
+            def replicate_now():
+                t0 = time.perf_counter()
+                n = rep0()
+                rep["replicate_now"] = {"s": time.perf_counter() - t0, "files": n}
+                return n
+            tr.manager.replicate_now = replicate_now
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = tr.run(iter(batches), CKPT_STEPS, log_every=0,
+                      log=print if rank == 0 else (lambda *_: None))
+        rep.update(run_s=time.perf_counter() - t0, launches=ops.launch_counts(),
+                   history=hist, saved={str(k): v for k, v in saved.items()},
+                   restored=restored, final_step=tr.step,
+                   final_checksum=replica_checksum(tr.state),
+                   peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None))
+        if rank == 0:
+            rep["timings"] = tr.manager.timings
+            rep["ckpt_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                                    for r, _, fs in os.walk(ckpt) for f in fs)
+            rep["gathered_files"] = tr.manager.gatherer.copied_total
+            rep["ckpt_tel"] = {k: {"total_bytes": v["total_bytes"],
+                                   "transfers": v["transfers"],
+                                   "modeled_s": v["total_seconds"],
+                                   "plan": v.get("plan")}
+                               for k, v in tel.get_telemetry().report().items()
+                               if k.startswith("ckpt:")}
+        tr.close()
+        # the wrappers' bound methods hold the trainer and its state
+        del tr, save0, restore0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        # the replay: a fresh Trainer restores the checkpoint the recovery
+        # read and takes the batches the recovered steps took
+        tr2 = Trainer(rc, mesh, ckpt_dir=snap, **kw)
+        rep["replay"] = {"how": tr2.init_or_restore(0), "step": tr2.step,
+                         "checksum": replica_checksum(tr2.state)}
+        n_after = CKPT_BATCHES - 1 - CKPT_FAULT_STEP
+        rep["replay"]["history"] = tr2.run(iter(batches[CKPT_FAULT_STEP + 1:]), n_after,
+                                           log_every=0)
+        tr2.close()
+        del tr2
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            rep["sha_primary"] = _dir_sha(ckpt)
+            rep["sha_replica"] = _dir_sha(replica)
+            shutil.rmtree(ckpt)           # the primary site's storage is gone
+        dist.barrier()
+        tr3 = Trainer(rc, mesh, ckpt_dir=ckpt, replica_dir=replica, **kw)
+        sync()
+        t0 = time.perf_counter()
+        how = tr3.init_or_restore(0)
+        sync()
+        rep["from_replica"] = {"how": how, "step": tr3.step,
+                               "s": time.perf_counter() - t0,
+                               "checksum": replica_checksum(tr3.state)}
+        tr3.close()
+        del tr3
+        dist.barrier()
+        if rank == 0:
+            # the checkpoint moves on to the facade phase's FileCopy
+            step_dir = sorted(os.listdir(replica))[-1]
+            os.replace(os.path.join(replica, step_dir), os.path.join(home, "facade_src"))
+            for d in (ckpt, replica, snap):
+                shutil.rmtree(d, ignore_errors=True)
+        with open(os.path.join(out, f"ckpt.rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    except BaseException:
+        _say_failed(rank)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _host_mem() -> dict:
+    """The host's available memory, dirty page cache and shared memory, and
+    the memory of this process's control group, GB."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            if k in ("MemAvailable", "Dirty", "Shmem", "Cached"):
+                info[k] = int(v.split()[0]) / 1e6
+    for name in ("/sys/fs/cgroup/memory.current", "/sys/fs/cgroup/memory/memory.usage_in_bytes"):
+        if os.path.exists(name):
+            info["cgroup"] = int(open(name).read()) / 1e9
+            break
+    return info
+
+
+def _children_rss() -> dict:
+    """{pid: resident GB} of this process's children."""
+    me, out = str(os.getpid()), {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                st = dict(line.split(":", 1) for line in f if ":" in line)
+        except OSError:
+            continue
+        if st.get("PPid", "").strip() == me:
+            out[int(pid)] = int(st.get("VmRSS", "0 kB").split()[0]) / 1e6
+    return out
+
+
+class _MemWatch:
+    """Samples _host_mem() every `every` seconds on a thread, printing each
+    sample and the children's resident memory to stderr; `low` is the
+    least available memory seen.  Below `floor_gb` available it kills the
+    children, so that the run fails with its output instead of the machine
+    running out of memory."""
+
+    def __init__(self, tag: str, every: float = 1.0, floor_gb: float = 12.0):
+        import threading
+        self.tag, self.every, self.low, self.floor = tag, every, None, floor_gb
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        import signal
+        t0 = time.perf_counter()
+        while not self._stop.wait(self.every):
+            m = _host_mem()
+            a = m.get("MemAvailable")
+            self.low = a if self.low is None or (a is not None and a < self.low) else self.low
+            kids = _children_rss()
+            n = getattr(self, "_n", 0)
+            self._n = n + 1
+            if n % 10 == 0 or (a is not None and a < 2 * self.floor):
+                print(f"chip_smoke: {self.tag} +{time.perf_counter() - t0:.0f}s host "
+                      f"memory {json.dumps(m)} children {json.dumps(kids)}",
+                      file=sys.stderr, flush=True)
+            if a is not None and a < self.floor:
+                print(f"chip_smoke: {self.tag}: {a:.1f} GB of host memory left; "
+                      f"stopping the ranks", file=sys.stderr, flush=True)
+                for pid in kids:
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                    except OSError:
+                        pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def phase_ckpt(torch, out_dir: str, spec: dict = TRAINER_SPEC,
+               kernels: bool = True) -> dict:
+    """The route phase's Trainer (4 pods, tokyo -> espoo, int8) with
+    ``ckpt_dir``, ``replica_dir`` over the route, ``ckpt_every=2``,
+    ``keep=1`` and a ``fault_hook`` that raises ``InjectedFault`` on rank 1
+    at step 3, for 5 steps.  Checks: every rank recovered at step 3 to the
+    step-2 checkpoint, whose restored checksum (parameters and moments) is
+    the saved one's; the recovered steps equal bit for bit (losses and
+    checksums) those of a fresh Trainer that restores the same checkpoint
+    and takes the same batches; the replica's files have the primary's
+    sha256 and crossed both hops zlib-compressed (``ckpt:*`` wire bytes
+    below the checkpoint bytes); with the primary removed, a fresh
+    Trainer's ``init_or_restore()`` is "restored" from the replica at step
+    5 with the final state's checksum; replicas bit-identical; the kernels
+    ran.  Reports save (host copy, then write), replicate and restore
+    seconds, checkpoint bytes and the per-hop wire bytes."""
+    t0 = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=out_dir)
+    free = shutil.disk_usage(home).free
+    emit({"phase": "ckpt_disk", "dir": home, "free_gb": free / 1e9})
+    watch = _MemWatch("ckpt")
+    try:
+        reps = _spawn(torch, _ckpt_rank, 4, out_dir, dict(spec, ckpt_home=home), "ckpt")
+    except BaseException:
+        shutil.rmtree(home, ignore_errors=True)
+        raise
+    finally:
+        watch.stop()
+    r0 = reps[0]
+    tag = "ckpt"
+    for r in reps:
+        steps = [h["step"] for h in r["history"]]
+        check(steps == [0, 1, 2, 2, 3, 4], f"{tag} rank {r['rank']}: steps {steps}")
+        check(len(r["restored"]) == 1 and r["restored"][0]["step"] == CKPT_EVERY,
+              f"{tag} rank {r['rank']}: one recovery to step {CKPT_EVERY}: {r['restored']}")
+        check(r["restored"][0]["checksum"] == r["saved"][str(CKPT_EVERY)],
+              f"{tag} rank {r['rank']}: restored checksum is the saved one's")
+        check(r["final_step"] == CKPT_STEPS, f"{tag}: final step {r['final_step']}")
+        rp = r["replay"]
+        check(rp["how"] == "restored" and rp["step"] == CKPT_EVERY
+              and rp["checksum"] == r["saved"][str(CKPT_EVERY)],
+              f"{tag} rank {r['rank']}: replay restored {rp['how']} at {rp['step']}")
+        after = r["history"][-len(rp["history"]):]
+        check([(h["loss"], h["checksum"]) for h in after]
+              == [(h["loss"], h["checksum"]) for h in rp["history"]],
+              f"{tag} rank {r['rank']}: recovered steps equal the replay bit for bit "
+              f"{[h['loss'] for h in after]} {[h['loss'] for h in rp['history']]}")
+        fr = r["from_replica"]
+        check(fr["how"] == "restored" and fr["step"] == CKPT_STEPS
+              and fr["checksum"] == r["final_checksum"] == r["saved"][str(CKPT_STEPS)],
+              f"{tag} rank {r['rank']}: restored from the replica {fr}")
+        _kernels_ran(r["launches"], f"{tag} rank {r['rank']}", kernels)
+        check(all(math.isfinite(h["loss"]) for h in r["history"]), f"{tag}: finite losses")
+    sums = [[h["checksum"] for h in r["history"]] for r in reps]
+    check(all(s == sums[0] for s in sums), f"{tag}: replicas bit-identical {sums}")
+    check(r0["sha_primary"] == r0["sha_replica"] and len(r0["sha_primary"]) > 1,
+          f"{tag}: the replica's {len(r0['sha_replica'])} files have the primary's sha256")
+    hops = {k: v for k, v in r0["ckpt_tel"].items() if "/hop" in k}
+    check(len(hops) == 2 and all(0 < v["total_bytes"] for v in hops.values()),
+          f"{tag}: per-hop ckpt wire bytes {hops}")
+    out = {"history_steps": [h["step"] for h in r0["history"]],
+           "losses": [h["loss"] for h in r0["history"]],
+           "replay_losses": [h["loss"] for h in r0["replay"]["history"]],
+           "ckpt_bytes": r0["ckpt_bytes"], "files": len(r0["sha_primary"]),
+           "saves": r0["timings"], "replicate_now": r0["replicate_now"],
+           "gathered_files": r0["gathered_files"],
+           "restore_s_by_rank": [r["restored"][0]["s"] for r in reps],
+           "replica_restore_s_by_rank": [r["from_replica"]["s"] for r in reps],
+           "run_s": r0["run_s"], "ckpt_wire": r0["ckpt_tel"],
+           "step_ms": [1e3 * h["time_s"] for h in r0["history"]],
+           "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in reps],
+           "launches_rank0": r0["launches"], "free_gb_before": free / 1e9,
+           "host_mem_low_available_gb": watch.low,
+           "facade_src": os.path.join(home, "facade_src"),
+           "phase_s": time.perf_counter() - t0}
+    emit({"phase": "ckpt", "mesh": "4 pods x 1 (CosmoGrid)", **out})
+    return out
+
+
+def _rss_gb() -> float:
+    """This process's resident memory, GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1e6
+    return 0.0
+
+
+def _facade_tree(torch, defs, rank: int, dev):
+    """A full-width f32 tree shaped like the parameters, drawn from a
+    generator seeded by `rank`."""
+    from repro_torch.core.tree import tree_map
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FACADE_SEED + rank)
+    return tree_map(lambda pd: torch.randn(pd.shape, generator=gen, device=dev,
+                                           dtype=torch.float32), defs)
+
+
+def _facade_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One of 4 ranks, one MPW session each: the verbs over the tokyo ->
+    espoo Forwarder and a single-link path on a full-width tree, the int8
+    AllReduce against the plain sum, and (rank 0) the FileCopy of the
+    checkpoint along the route, interrupted and resumed."""
+    import threading
+    import torch
+    from repro_torch.configs import CommConfig, get_config, smoke_config
+    from repro_torch.core.api import MPW
+    from repro_torch.core.filetransfer import ChecksumError, FileTransfer, file_sha256
+    from repro_torch.core.tree import flatten
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_loop import replica_checksum
+    from repro_torch.sharding import tree_fsdp_dims
+    dist, dev, mesh = _rank_setup(torch, rank, 4, init, spec, pods=4)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    try:
+        cfg = get_config(spec["arch"])
+        if spec["smoke"]:
+            cfg = smoke_config(cfg)
+        defs = build_model(cfg).param_defs()
+        # each leaf crosses along its scatter dim, as the gradient sync's do:
+        # along the stacked layer dim the int8 codec would pad each one-layer
+        # chunk's extent of 1 to its 256-element block (ROADMAP.md §C 4)
+        dims = tree_fsdp_dims(defs, 1, 1)
+        topo, _ = _cosmogrid()
+        mpw = MPW.Init(mesh)
+        fid = mpw.CreateForwarder(topo, *ROUTE)
+        lid = mpw.CreatePath(nstreams=32)
+        # paced to one stream a wave: the int8 psum gathers every rank's
+        # padded chunks (§C 4), and a whole tree's at once would not fit in
+        # the host memory of four ranks
+        qid = mpw.CreatePath(comm=CommConfig(compress="int8", pacing=1 / 32))
+        mine = _facade_tree(torch, defs, rank, dev)
+        nbytes = _tree_bytes(mine)
+        every = [torch.zeros(1, dtype=torch.int64) for _ in range(4)]
+        dist.all_gather(every, torch.tensor([replica_checksum(mine)]))
+        sums = [int(t) for t in every]
+        rep = {"rank": rank, "tree_bytes": nbytes, "verbs": {}}
+
+        def timed(fn):
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            return res, time.perf_counter() - t0
+
+        ops.reset_launch_counts()
+        verbs = [("SendRecv", lambda: mpw.SendRecv(fid, mine, dims=dims), 1, 2),
+                 ("Cycle", lambda: mpw.Cycle(fid, fid, mine, dims=dims), 2, 4),
+                 ("Relay", lambda: mpw.Relay(fid, mine, dims=dims), 1, 2),
+                 ("Forward", lambda: mpw.Forward(fid, mine, dims=dims), 1, 2),
+                 ("Forward_reverse", lambda: mpw.Forward(fid, mine, dims=dims,
+                                                         reverse=True), -1, 2),
+                 ("SendRecv_link", lambda: mpw.SendRecv(lid, mine, dims=dims), 1, 1),
+                 ("ISendRecv_Wait", lambda: mpw.Wait(*mpw.ISendRecv(lid, mine)), 1, 1)]
+        for name, fn, shift, legs in verbs:
+            got, dt = timed(fn)
+            want = sums[(rank - shift) % 4]
+            rep["verbs"][name] = {"ok": replica_checksum(got) == want, "s": dt,
+                                  "legs": legs, "GBps": nbytes * legs / dt / 1e9,
+                                  "rss_gb": _rss_gb()}
+            del got
+        buf = torch.zeros(1 << 20, device=dev)
+        buf[:1000 + rank] = float(rank + 1)
+        (gbuf, glen), dt = timed(lambda: mpw.DSendRecv(lid, buf, 1000 + rank, 1 << 20))
+        src = (rank - 1) % 4
+        rep["verbs"]["DSendRecv"] = {
+            "ok": int(glen) == 1000 + src and bool((gbuf[:int(glen)] == src + 1).all())
+            and bool((gbuf[int(glen):] == 0).all()), "s": dt}
+        bar, dt = timed(mpw.Barrier)
+        rep["verbs"]["Barrier"] = {"ok": float(bar) == 4.0, "s": dt}
+        got, dt = timed(lambda: mpw.AllReduce(qid, mine, dims=dims))
+        # against the plain sum of the four ranks' trees in rank order,
+        # within the int8 codec's bound: half a quantization step of each
+        # rank's block, at most its leaf's absmax / 127 / 2
+        worst = 0.0
+        leaves_got = flatten(got)[0]
+        seeds = [torch.Generator(device=dev) for _ in range(4)]
+        for r, g in enumerate(seeds):
+            g.manual_seed(FACADE_SEED + r)
+        for x, pd in zip(leaves_got, flatten(defs)[0]):
+            xs = [torch.randn(pd.shape, generator=g, device=dev, dtype=torch.float32)
+                  for g in seeds]
+            want = xs[0] + xs[1] + xs[2] + xs[3]
+            bound = (sum(float(v.abs().max()) for v in xs) / 127 / 2
+                     + 1e-6 * float(want.abs().max()))
+            err = float((x - want).abs().max())
+            worst = max(worst, err / bound)
+            del xs, want
+        rep["verbs"]["AllReduce_int8"] = {"ok": worst <= 1.0, "s": dt,
+                                          "err_over_bound": worst,
+                                          "GBps": nbytes / dt / 1e9}
+        del got
+        rep["launches"] = ops.launch_counts()
+        rep["report_keys"] = sorted(mpw.Report())
+        dist.barrier()
+        if rank == 0:
+            src_dir = spec["facade_src"]
+            dst_dir = os.path.join(os.path.dirname(src_dir), "facade_copy")
+            # chunks of at most half the largest file, so that a file crosses
+            # in several chunks whatever the model's width
+            biggest = max(os.path.getsize(os.path.join(src_dir, f))
+                          for f in os.listdir(src_dir))
+            mpw.setChunkSize(fid, max(1 << 16, min(mpw.path(fid).chunk_bytes,
+                                                   biggest // 2)))
+            path = mpw.path(fid)
+            # the first try: hop 1 corrupts every arrival of the second
+            # chunk of a file, past the retries; one stream, so the chunks
+            # before it have landed and their sidecar is kept
+            lock, hits = threading.Lock(), [0]
+
+            def corrupt(c, hop, payload):
+                if hop == 1 and c.leaf == 1:
+                    with lock:
+                        hits[0] += 1
+                    return b"\0" * len(payload)
+                return payload
+
+            eng = FileTransfer(path.with_(streams=1), fault_hook=corrupt)
+            failed = None
+            try:
+                eng.copy_tree(src_dir, dst_dir)
+            except ChecksumError as e:
+                failed = str(e)
+            t0 = time.perf_counter()
+            results = mpw.FileCopy(fid, src_dir, dst_dir)
+            dt = time.perf_counter() - t0
+            src_sha = _dir_sha(src_dir)
+            ok = all(res.sha256 == src_sha[os.path.relpath(res.src, src_dir)]
+                     for res in results) and _dir_sha(dst_dir) == src_sha
+            report = mpw.Report()
+            copied = sum(res.nbytes for res in results)
+            rep["FileCopy"] = {
+                "failed_first": failed, "corrupted_arrivals": hits[0],
+                "ok": ok and failed is not None, "s": dt, "bytes": copied,
+                "GBps": copied / dt / 1e9, "files": len(results),
+                "chunk_bytes": path.chunk_bytes,
+                "resumed_skipped": sum(res.skipped for res in results),
+                "hop_rows": {k: {"total_bytes": report[k]["total_bytes"],
+                                 "plan_wire_bytes": report[k]["plan"]["wire_bytes"]}
+                             for k in path.hop_keys()},
+                "hop_wire_bytes": [sum(res.hop_wire_bytes[i] for res in results)
+                                   for i in range(path.n_hops)]}
+            shutil.rmtree(dst_dir, ignore_errors=True)
+        dist.barrier()
+        mpw.Finalize()
+        with open(os.path.join(out, f"facade.rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    except BaseException:
+        _say_failed(rank)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_facade(torch, out_dir: str, spec: dict = TRAINER_SPEC,
+                 kernels: bool = True, src_dir: str = None) -> dict:
+    """Four spawned ranks on the card, one ``MPW`` session each on a 4-pod
+    mesh: ``CreateForwarder(cosmogrid, "tokyo", "espoo")``, then SendRecv,
+    Cycle, Relay and Forward (both directions) of a full-width f32 tree
+    shaped like qwen1.5-0.5b's parameters (a generator seeded by the rank),
+    SendRecv and ISendRecv/Wait over a single link, DSendRecv, Barrier, and
+    AllReduce with int8 against the plain sum.  Checks: every verb delivers
+    exactly the tree its sender made (checksums of the bits), the int8
+    AllReduce within half a quantization step per rank of the plain sum,
+    quant and dequant launched by it; then on rank 0 a FileCopy of the ckpt
+    phase's checkpoint along the route, first failing its CRC on hop 1
+    past ``max_retries`` (ChecksumError), then resumed by the verb: every
+    file's sha256 the source's, a chunk skipped on resume, per-hop Report
+    rows.  Reports each verb's GB/s (the ranks share the card; the links
+    are host memory and gloo on one machine)."""
+    t0 = time.perf_counter()
+    have_src = src_dir is not None and os.path.isdir(src_dir)
+    if not have_src:   # without the ckpt phase: a checkpoint of a smaller tree
+        from repro_torch.checkpoint import store
+        src_dir = os.path.join(out_dir, "facade_src")
+        gen = torch.Generator().manual_seed(FACADE_SEED)
+        store.save({"w": torch.randn(1 << 22, generator=gen),
+                    "b": torch.randn(4096, generator=gen)}, src_dir, step=0)
+    watch = _MemWatch("facade")
+    try:
+        reps = _spawn(torch, _facade_rank, 4, out_dir, dict(spec, facade_src=src_dir),
+                      "facade")
+    finally:
+        watch.stop()
+        shutil.rmtree(os.path.dirname(src_dir) if have_src else src_dir,
+                      ignore_errors=True)
+    for r in reps:
+        for name, v in r["verbs"].items():
+            check(v["ok"], f"facade rank {r['rank']}: {name} {v}")
+        la = r["launches"]
+        check(not kernels or (la["quant_int8"] > 0 and la["dequant_int8"] > 0),
+              f"facade rank {r['rank']}: the int8 AllReduce launched quant and "
+              f"dequant {la}")
+    fc = reps[0]["FileCopy"]
+    check(fc["ok"] and fc["resumed_skipped"] >= 1,
+          f"facade: FileCopy interrupted then resumed {fc}")
+    check(all(v["total_bytes"] > 0 for v in fc["hop_rows"].values())
+          and len(fc["hop_rows"]) == 2, f"facade: per-hop Report rows {fc['hop_rows']}")
+    out = {"tree_bytes": reps[0]["tree_bytes"],
+           "verbs_by_rank": [r["verbs"] for r in reps], "FileCopy": fc,
+           "file_src": "ckpt phase checkpoint" if have_src else "small checkpoint",
+           "launches_rank0": reps[0]["launches"], "phase_s": time.perf_counter() - t0}
+    emit({"phase": "facade", "mesh": "4 pods x 1 (CosmoGrid)",
+          "links": "host memory and gloo on one machine", **out})
+    return out
+
+
 def _demangle(names: list[str]) -> list[str]:
     """`void (anonymous namespace)::k<128, 4>(...)` -> `k<128, 4>`, by
     c++filt where the toolkit has it; the mangled names otherwise."""
@@ -1608,6 +2348,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, under `name` (the phases' split)."""
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - last[0]
+        last[0] = now
     if "env" in phases:
         emit({"phase": "env", "python": sys.version.split()[0],
               "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1619,11 +2366,14 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "built": built, "dir": str(build.BUILD_DIR.relative_to(ROOT)),
               "ptxas": phase_build_resources(build, built)})
+    lap("env_build")
     krows = phase_kernels(torch, dev) if "kernels" in phases else {}
     if krows:
         emit({"phase": "kernels", "card": smi, **krows})
+    lap("kernels")
     if "small" in phases:
         emit({"phase": "small", **phase_small(torch, dev)})
+    lap("small")
     eng = {}
     if "engine" in phases or "profile" in phases:
         cfg, params, init_s = full_width(torch, dev)
@@ -1635,28 +2385,49 @@ def main() -> int:
                   **phase_profile(torch, dev, cfg, params)})
         del params
         torch.cuda.empty_cache()
+    lap("engine_profile")
     train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}
+    route, ckpt, facade = {}, {}, {}
     if any(p in phases for p in ("train", "zero", "buckets", "ring", "sites",
-                                 "autotune")):
+                                 "autotune", "route", "ckpt", "facade")):
         import tempfile
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
             if "train" in phases:
                 train = phase_train(torch, d)
+                lap("train")
             if "zero" in phases or "buckets" in phases:
                 zero = phase_zero(torch, d)
+                lap("zero")
             if "buckets" in phases:
                 bkt = phase_buckets(torch, d, zero)
+                lap("buckets")
             if "ring" in phases:
                 ring = phase_ring(torch, d)
+                lap("ring")
             if "sites" in phases:
                 sites = phase_sites(torch, d)
+                lap("sites")
             if "autotune" in phases:
                 tune = phase_autotune(torch, d)
+                lap("autotune")
+            if "route" in phases:
+                route = phase_route(torch, d)
+                lap("route")
+            if "ckpt" in phases:
+                ckpt = phase_ckpt(torch, d)
+                lap("ckpt")
+            if "facade" in phases:
+                facade = phase_facade(torch, d, src_dir=ckpt.get("facade_src"))
+                lap("facade")
+            elif ckpt:
+                shutil.rmtree(os.path.dirname(ckpt["facade_src"]), ignore_errors=True)
     if krows and ring:
         wire = phase_kernels_ring(torch, dev, ring["ring_int8"]["top_wire_shape"])
         for name, row in wire.items():
             krows[name].append(row)
         emit({"phase": "kernels_ring_wire", "card": smi, **wire})
+    lap("kernels_ring_wire")
+    emit({"phase": "seconds", **laps})
     if krows:
         line = []
         # launches on the ZeRO training path (int8 run, rank 0: all five
@@ -1667,6 +2438,9 @@ def main() -> int:
         on_ring = ring.get("ring_int8", {}).get("launches_rank0", {})
         on_sites = sites.get("ring_int8", {}).get("launches_rank0", {})
         on_tune = tune.get("launches_rank0", {})
+        on_route = route.get("route_int8", {}).get("launches_rank0", {})
+        on_ckpt = ckpt.get("launches_rank0", {})
+        on_facade = facade.get("launches_rank0", {})
         for name, source, replaces, tol in KERNELS:
             # the row at the training path's shape
             main_row = next(r for r in krows[name] if r.get("on_path") == "train")
@@ -1679,6 +2453,9 @@ def main() -> int:
                          "launches_ring_3x1": on_ring.get(name, 0),
                          "launches_sites_ring_int8_gateway": on_sites.get(name, 0),
                          "launches_autotune_2x1": on_tune.get(name, 0),
+                         "launches_route_int8_4x1": on_route.get(name, 0),
+                         "launches_ckpt_4x1": on_ckpt.get(name, 0),
+                         "launches_facade_4x1": on_facade.get(name, 0),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
                          **({"ring_wire_block": ring_row} if ring_row else {}),
                          "max_abs_err": main_row["max_abs_err"],

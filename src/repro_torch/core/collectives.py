@@ -1,7 +1,7 @@
 """Wide-area collectives: the paper's transfer engine on ``torch.distributed``
 process groups.
 
-The port of the JAX package's ``core/collectives.py`` (``site_groups`` aside).
+The port of the JAX package's ``core/collectives.py``.
 The axes of the mesh (:class:`repro_torch.launch.mesh.PodMesh`) are process
 groups: the pod group over this data index's pod ranks (the WAN axis), the
 data group over this pod's ranks, and the world.  Each WidePath stream is a
@@ -33,8 +33,9 @@ With ``site_groups`` the stage is site-hierarchical
 (:func:`site_allreduce`): the pods of a site sum first over their site's
 group, then only the site gateways' sums cross the WAN.
 
-Multi-hop paths are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+A multi-hop path (a Forwarder route, ``WidePath.hops``) syncs with the
+bottleneck hop's knobs and notes a traffic plan for every hop
+(:func:`_note_hop_plans`), as the reference does.
 """
 from __future__ import annotations
 
@@ -88,9 +89,6 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     algo = path.comm.algo
     if algo not in ALGOS:
         raise ValueError(f"unknown comm algo {algo!r}; have {ALGOS}")
-    if path.hops:
-        raise queued("multi-hop paths (Forwarder routes)",
-                     "facade, relays, files, checkpoints")
     if mesh is None or mesh.pod_group is None:
         return tree   # axis absent (single pod): nothing to cross
     if site_groups is not None:
@@ -113,6 +111,8 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
         chunks, buckets, path.streams, path.chunk_bytes, path.comm.pacing,
         algo=algo, world=eff_world, compress=compress,
         wire_bytes=int(round(wire))))
+    if path.hops:
+        _note_hop_plans(path, leaves, dim_list)
     # a rank outside a ring's subgroup posts nothing
     idle = algo != "psum" and members is not None and mesh.pod_index not in members
 
@@ -200,15 +200,28 @@ def site_allreduce(tree, path: WidePath, mesh, site_groups, dims=None,
     gateways = [g[0] for g in groups]
     is_gw = mesh.pod_index in gateways
     mask = lambda l: l if is_gw else torch.zeros_like(l)
+    # a route notes its per-hop plans instead of a /wan one
+    wan_key = None if path.hops else f"{key}/wan"
     if path.comm.algo in ("ring", "ring2"):
         exchanged = streamed_psum(unflatten(td, reduced), path, mesh,
-                                  dims=dim_list, tel_key=f"{key}/wan",
+                                  dims=dim_list, tel_key=wan_key,
                                   subgroup=gateways, chunks=chunks, log=log)
         return unflatten(td, [psum_group(mask(l), site)
                               for l in flatten(exchanged)[0]])
     return streamed_psum(unflatten(td, [mask(l) for l in reduced]), path,
-                         mesh, dims=dim_list, tel_key=f"{key}/wan",
+                         mesh, dims=dim_list, tel_key=wan_key,
                          subgroup=gateways, chunks=chunks, log=log)
+
+
+def _note_hop_plans(path: WidePath, leaves, dim_list) -> None:
+    """Record a per-hop traffic plan for a multi-hop path: the same payload
+    crosses every hop, but each hop chunks it with its own knobs."""
+    for i, hop in enumerate(path.route):
+        chunks = st.plan_chunks(leaves, dim_list, hop.chunk_bytes)
+        buckets = st.assign_streams(chunks, hop.streams)
+        tel.note_plan(path.hop_key(i), **st.plan_summary(
+            chunks, buckets, hop.streams, hop.chunk_bytes, hop.comm.pacing,
+            algo="shift"))
 
 
 # ---------------------------------------------------------------------------

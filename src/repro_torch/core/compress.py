@@ -94,7 +94,9 @@ def quant_chunk(x: torch.Tensor, dim: int):
 def _restore(y: torch.Tensor, meta) -> torch.Tensor:
     shape, dtype, dim, n, pad = meta
     if pad:
-        y = y[..., :n]
+        # a copy: a view would keep the padded block alive (a chunk of few
+        # rows pads to 256, ROADMAP.md §C 4)
+        y = y[..., :n].contiguous()
     if len(shape) == 0:
         return y.reshape(()).to(dtype)
     return y.movedim(-1, dim).to(dtype)

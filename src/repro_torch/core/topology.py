@@ -12,11 +12,11 @@ route).  A :class:`Route` is a site sequence with per-hop profiles; the
 whose transfers store-and-forward hop by hop (`repro_torch.core.cycle.forward`).
 
 The port's copy of the JAX package's ``core/topology.py``: only the package
-name in its imports differs.  The port uses :meth:`Topology.pod_groups` and
-:meth:`Topology.gateways` today (the site groups of the gradient sync); its
-routes and the :class:`Forwarder` wait for ROADMAP.md queue A 'facade,
-relays, files, checkpoints' (``core/cycle.py`` is not ported yet), its
-faults and link health for 'topology, chaos and elasticity'.
+name in its imports differs.  The port uses its site groups (the
+site-hierarchical gradient sync), its routes and the :class:`Forwarder`
+(training over a route, the MPW facade, mpw-cp and the checkpoint replicas);
+its faults and link health wait for ROADMAP.md queue A 'topology, chaos and
+elasticity'.
 """
 from __future__ import annotations
 

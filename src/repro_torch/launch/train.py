@@ -8,6 +8,9 @@
       --ranks 4 --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 3 \
       --global-batch 6 --device cpu --steps 2
+  python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 4 \
+      --device cpu --steps 4 --route tokyo:espoo --compress int8 \
+      --ckpt-dir /tmp/ckpt --replica-dir /tmp/replica --ckpt-every 2
 
 Runs on the CUDA card unless ``--device cpu``.  ``--ranks N`` (default
 ``--pods``) stands for the JAX launcher's device count: the mesh is ``pods``
@@ -24,11 +27,17 @@ As the JAX launcher, the CLI has no flag for ``CommConfig.algo`` or
 :class:`CommConfig` that every rank runs with in place of the one the
 ``--mode``/``--streams``/``--chunk-mb``/``--compress`` flags build.
 
-The JAX launcher's checkpoint, production-mesh, route, chaos, local-SGD and
-membership flags are not ported yet and stop the launcher naming their
-ROADMAP item; ``--ckpt-every`` (the cadence, given to the trainer) and
-``--lease-steps`` (read with ``--coordinator`` alone) are accepted, as the
-JAX launcher accepts them without ``--ckpt-dir`` and ``--coordinator``.  ``--check-replicas`` compares every pod's parameters after
+``--ckpt-dir`` (with ``--ckpt-every``) checkpoints the run, rank 0 writing,
+and a restart with the same directory restores the newest checkpoint;
+``--replica-dir`` mirrors the checkpoints there.  ``--route SRC:DST`` plans
+a route on the 4-site CosmoGrid topology (``core/topology.py``
+``cosmogrid_topology``, one pod a site, so ``--pods 4``): the gradient sync
+runs over it as a multi-hop path with the topology's site groups, and the
+replicas travel it with mpw-cp, as the JAX launcher does.  The JAX
+launcher's production-mesh, chaos, local-SGD and membership flags are not
+ported yet and stop the launcher naming their ROADMAP item;
+``--lease-steps`` (read with ``--coordinator`` alone) is accepted, as the
+JAX launcher accepts it without ``--coordinator``.  ``--check-replicas`` compares every pod's parameters after
 every step, ``--report`` writes each rank's run as JSON (history, kernel
 launches, the sync plan, peak device memory), ``--profile-step`` runs one
 step of rank 0 under ``torch.profiler``.
@@ -49,6 +58,7 @@ import torch.distributed as dist
 from repro_torch.configs import (SHAPES, CommConfig, RunConfig, ShapeConfig,
                                  TrainConfig, get_config, smoke_config)
 from repro_torch.core.telemetry import get_telemetry
+from repro_torch.core.topology import cosmogrid_topology
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import BACKEND, make_local_mesh
@@ -56,11 +66,8 @@ from repro_torch.runtime import Trainer
 
 # JAX launcher flags that this slice does not run, with their ROADMAP item
 QUEUED_FLAGS = {
-    "ckpt_dir": "facade, relays, files, checkpoints",
-    "replica_dir": "facade, relays, files, checkpoints",
     "production_mesh": "tensor parallelism and the production meshes",
     "multi_pod": "tensor parallelism and the production meshes",
-    "route": "facade, relays, files, checkpoints",
     "backup_links": "topology, chaos and elasticity",
     "chaos_drop": "topology, chaos and elasticity",
     "coordinator": "topology, chaos and elasticity",
@@ -99,13 +106,15 @@ def parser() -> argparse.ArgumentParser:
                     help="write rank r's run as JSON to PATH.rank{r}.json")
     ap.add_argument("--profile-step", type=int, default=None, metavar="K",
                     help="run step K of rank 0 under torch.profiler (in the report)")
-    # the JAX launcher's flags that wait for later slices
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--replica-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--route", default=None, metavar="SRC:DST",
+                    help="route the sync (and the replicas) over the CosmoGrid "
+                         "topology from SRC to DST; needs --pods 4")
+    # the JAX launcher's flags that wait for later slices
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--route", default=None)
     ap.add_argument("--backup-links", action="store_true")
     ap.add_argument("--chaos-drop", type=int, default=None)
     ap.add_argument("--local-steps", type=int, default=1)
@@ -124,6 +133,14 @@ def _check_flags(args) -> None:
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to PyTorch "
                              f"yet (ROADMAP.md queue A, {item!r})")
+    if args.route is not None:
+        ends = args.route.split(":")
+        if len(ends) != 2 or not all(ends):
+            raise SystemExit(f"--route {args.route!r} is not SRC:DST")
+        if args.pods != 4:
+            raise SystemExit(f"--route runs on the 4-site CosmoGrid topology, "
+                             f"one pod a site: it needs --pods 4, got "
+                             f"--pods {args.pods}")
     if args.local_steps != 1:
         raise SystemExit("--local-steps > 1 (local SGD) is not ported to PyTorch "
                          "yet (ROADMAP.md queue A, 'topology, chaos and elasticity')")
@@ -183,7 +200,16 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
                                     global_batch=gb, kind=args.data,
                                     path=args.data_path))
     say = print if rank == 0 else (lambda *_: None)
-    trainer = Trainer(rc, mesh, ckpt_every=args.ckpt_every,
+    route = site_groups = None
+    if args.route:
+        src, dst = args.route.split(":")
+        topo = cosmogrid_topology()
+        route = topo.route(src, dst)
+        site_groups = topo.pod_groups()
+        say(f"[train] WAN route: {route.describe()}")
+    trainer = Trainer(rc, mesh, ckpt_dir=args.ckpt_dir,
+                      replica_dir=args.replica_dir, ckpt_every=args.ckpt_every,
+                      route=route, site_groups=site_groups,
                       check_replicas=args.check_replicas)
     path = trainer.bundle.path
     plan_b = trainer.bundle.bucket_plan
@@ -229,6 +255,9 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
               "bucket_mb": comm.bucket_mb, "streams": path.streams,
               "chunk_mb": path.comm.chunk_mb,
               "plan": None if plan is None else plan.__dict__,
+              "route": None if route is None else route.describe(),
+              "hop_plans": {k: tel.path(k).plan.__dict__ for k in path.hop_keys()
+                            if path.hops and tel.path(k).plan is not None},
               "bucket_plans": bucket_plans,
               "history": hist, "launches": launches, "profile": prof_out,
               "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)

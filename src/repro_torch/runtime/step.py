@@ -22,7 +22,9 @@ jitted shard_map.
   one.  With ``site_groups`` (``Topology.pod_groups``) the cross-pod stage
   is site-hierarchical (``core/collectives.py`` ``site_allreduce``): the
   pods of a site sum first, then only the site gateways cross the WAN.
-  Routes and local SGD are queued (ROADMAP.md queue A).
+  A ``route`` (``core/topology.py`` ``Route``) makes the cross-pod path
+  multi-hop: the sync runs with the bottleneck hop's knobs and every hop's
+  plan is noted.  Local SGD is queued (ROADMAP.md queue A).
 * :func:`build_serve_step`: prefill / decode on one device, under
   ``torch.inference_mode()``.
 """
@@ -42,7 +44,8 @@ from repro_torch.core import buckets as bk
 from repro_torch.core import streams as st
 from repro_torch.core import telemetry as tel
 from repro_torch.core.autotune import autotune_path
-from repro_torch.core.collectives import (all_gather_dim, psum_group, queued,
+from repro_torch.core.collectives import (_note_hop_plans, all_gather_dim,
+                                          psum_group, queued,
                                           reduce_scatter_dim, streamed_psum,
                                           wide_allreduce)
 from repro_torch.core.overlap import accum_grads, flush_hook, modeled_exposure
@@ -202,6 +205,8 @@ def _note_path_plan(defs, dims, path: WidePath, shard: int, world: int = 1, *,
     tel.note_plan(path.key, **st.plan_summary(
         chunks, buckets, path.streams, path.chunk_bytes, path.comm.pacing,
         algo=path.comm.algo, world=world, compress=path.comm.compress))
+    if path.hops:
+        _note_hop_plans(path, eff_leaves, eff_dims)
     bucketed = stacked_flags is not None and path.bucket_bytes > 0
     if bucketed:
         bk.note_bucket_plans(path, eff_leaves, eff_dims, None, world=world,
@@ -295,10 +300,11 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
 
     `site_groups` (lists of pod indices, one per site) must tile the pod
     axis; with one pod there is nothing to group and they are dropped.
-    The bundle's ``replan`` re-notes its plan (a trainer swapping back to a
-    cached bundle calls it)."""
-    if route is not None:
-        raise queued("a multi-hop route", "facade, relays, files, checkpoints")
+    `route` (a ``core/topology.py`` ``Route``) makes the cross-pod path
+    multi-hop: per-hop links and knobs from the route's LinkProfiles, the
+    bottleneck leg driven by ``rc.comm`` (the autotuner's slot), per-hop
+    plans in telemetry.  The bundle's ``replan`` re-notes its plan (a
+    trainer swapping back to a cached bundle calls it)."""
     if local_only:
         raise queued("local SGD (local_steps > 1)", "topology, chaos and elasticity")
     if rc.comm.mode not in ("flat", "hierarchical", "gateway"):
@@ -322,6 +328,8 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     dp_group = mesh.group_of(dp)
 
     path = WidePath(axis="pod", comm=rc.comm, link=INTERPOD, name="train")
+    if route is not None:
+        path = path.with_hops(route.as_hops(bottleneck_comm=rc.comm))
     tc = rc.train
     m_micro = max(1, tc.microbatches)
     shard = data_size if zero else 1

@@ -1,13 +1,14 @@
 """Trainer: the training loop of the port.
 
 The port of the loop of the JAX package's ``runtime/train_loop.py``: fresh
-initialization, the step loop with its history (loss, lr, grad_norm, step
-seconds, the gradient sync's seconds, chunks and bytes, and with a bucketed
-sync its mode and each bucket's), the straggler detector, the path
-telemetry, site groups (the site-hierarchical gradient sync) and online
-autotuning.  Checkpointing and fault recovery, routes, chaos, elastic
-membership and local SGD are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+initialization or a restore, the step loop with its history (loss, lr,
+grad_norm, step seconds, the gradient sync's seconds, chunks and bytes, and
+with a bucketed sync its mode and each bucket's), the straggler detector,
+the path telemetry, site groups (the site-hierarchical gradient sync),
+multi-hop routes with their per-hop samples, online autotuning, and
+checkpoints with fault recovery and replicas.  Chaos, elastic membership
+and local SGD are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item.
 
 Online autotuning (``autotune_every=N``) is the reference's: an
 ``OnlineTuner`` over the path's knobs, a step bundle built per config and
@@ -18,6 +19,20 @@ times would build other bundles and post their collectives in other orders.
 So every tuner is fed the same number, the largest of the ranks' step
 times (one f32 all-reduce over the world after each step), and every rank
 swaps at the same step to the same config.
+
+Checkpoints (``ckpt_dir``) are the reference's ``CheckpointManager``: an
+async save every `ckpt_every` steps and a blocking one at the end, `keep`
+kept, mirrored to `replica_dir` by a DataGather (over the `route` with
+mpw-cp when one is given, as the reference ships them).  One process of the
+reference is several ranks here, so one rank writes: rank 0 (pod 0, data
+rank 0), which under ZeRO first gathers its pod's shards over the data
+group; the other ranks wait at a barrier.  A restore reads the step rank 0
+chose and hands each leaf to every rank, its shard under ZeRO, on its
+device.  A ``fault_hook`` that raises ``InjectedFault`` on any rank makes
+every rank recover at the same step: after the hook the ranks all-reduce a
+fault flag, so no rank is left inside a collective; as in the reference the
+failed step's batch is consumed, not replayed, and the recoveries of one
+streak are bounded by the ``retry`` policy.
 
 With ``check_replicas`` the loop holds the data-parallel invariant after
 every step, compared by a checksum of the parameters' bits: without ZeRO
@@ -35,11 +50,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.store import leaf_paths
 from repro_torch.configs.base import RunConfig
-from repro_torch.core.autotune import OnlineTuner
-from repro_torch.core.collectives import queued
+from repro_torch.core.autotune import OnlineTuner, hop_shares
+from repro_torch.core.collectives import all_gather_dim, queued
+from repro_torch.core.retry import RetryPolicy, RetryState
 from repro_torch.core.telemetry import get_telemetry
-from repro_torch.core.tree import flatten
+from repro_torch.core.tree import flatten, tree_map
+from repro_torch.models.param import shard_leaf
 from repro_torch.runtime.step import StepBundle, build_train_step
 
 
@@ -102,28 +121,15 @@ def replica_checksum(params) -> int:
 
 class Trainer:
     """The reference's keywords, in its order; `check_replicas` is the
-    port's own.  `ckpt_every` and `keep` are kept for the checkpoints,
-    which are queued with `ckpt_dir`."""
+    port's own."""
 
     def __init__(self, rc: RunConfig, mesh, *, ckpt_dir: Optional[str] = None,
                  replica_dir: Optional[str] = None, ckpt_every: int = 50,
                  keep: int = 3, fault_hook: Optional[Callable[[int], None]] = None,
                  autotune_every: int = 0, route=None, site_groups=None,
-                 chaos=None, membership=None, retry=None,
+                 chaos=None, membership=None,
+                 retry: Optional[RetryPolicy] = None,
                  check_replicas: bool = False):
-        if ckpt_dir is not None:
-            raise queued("checkpoints (ckpt_dir)", "facade, relays, files, checkpoints")
-        if replica_dir is not None:
-            raise queued("checkpoint replicas (replica_dir)",
-                         "facade, relays, files, checkpoints")
-        if fault_hook is not None:
-            raise queued("fault_hook recovery (restore from a checkpoint)",
-                         "facade, relays, files, checkpoints")
-        if retry is not None:
-            raise queued("the fault-recovery budget (retry)",
-                         "facade, relays, files, checkpoints")
-        if route is not None:
-            raise queued("a multi-hop route", "facade, relays, files, checkpoints")
         if chaos is not None or membership is not None:
             raise queued("chaos and elastic membership",
                          "topology, chaos and elasticity")
@@ -132,13 +138,27 @@ class Trainer:
                          "topology, chaos and elasticity")
         self.rc = rc
         self.mesh = mesh
+        # `route` makes the cross-pod path a multi-hop Forwarder chain
+        # (per-hop knobs and telemetry); `site_groups` makes the cross-pod
+        # psum reduce intra-site before the slow hop
+        self.route = route
         self.site_groups = site_groups
+        # fault-recovery budget: bounded checkpoint-restore attempts per
+        # incident streak (a successful step resets the schedule)
+        self.retry = retry or RetryPolicy(max_attempts=8)
+        self.bundle: StepBundle = build_train_step(rc, mesh, route=route,
+                                                   site_groups=site_groups)
         self.ckpt_every = ckpt_every
         self.keep = keep
-        self.bundle: StepBundle = build_train_step(rc, mesh,
-                                                   site_groups=site_groups)
+        self.fault_hook = fault_hook
         self.detector = StragglerDetector()
         self.check_replicas = check_replicas
+        # rank 0 (pod 0, data rank 0) writes the checkpoints
+        self.writer = mesh.pod_index == 0 and mesh.data_index == 0
+        self.manager = (CheckpointManager(
+            ckpt_dir, keep=keep, replica_dir=replica_dir,
+            transfer=self._ckpt_transfer(replica_dir))
+            if ckpt_dir else None)
         self.state = None
         self.step = 0
         self.history: list[dict] = []
@@ -174,8 +194,99 @@ class Trainer:
                     and cfg0.get("bucket_mb", p.comm.bucket_mb) == p.comm.bucket_mb):
                 self._bundles[self._cfg_key(cfg0)] = self.bundle
 
+    def _ckpt_transfer(self, replica_dir):
+        """Checkpoint shipping engine: when this trainer spans sites (a
+        topology `route` was given), replicas travel the same multi-hop
+        route the gradients do (mpw-cp chunked, compressed transfers with
+        per-hop telemetry under the ``ckpt:*`` keys) instead of a local
+        copy.  Single-site trainers keep the local mirror (None)."""
+        if not replica_dir or self.route is None:
+            return None
+        from repro_torch.core.filetransfer import FileTransfer
+        from repro_torch.core.path import WidePath
+        path = WidePath(axis="pod", comm=self.rc.comm, name="ckpt")
+        # digest=False: the mirror loop discards FileResults, so the
+        # finalize sha256 would be a second full read of every shard for
+        # nothing (per-chunk CRCs already verify the bytes end to end)
+        return FileTransfer(path.with_hops(
+            self.route.as_hops(base_comm=self.rc.comm)), digest=False)
+
+    # -- state management ----------------------------------------------------
+    def _like(self) -> dict:
+        """The state's structure (its leaves' names), as the checkpoint
+        store numbers and names them."""
+        defs = self.bundle.param_defs
+        return {"params": defs, "opt": {"m": defs, "v": defs, "step": None}}
+
+    def _scatter_dims(self) -> dict:
+        """{leaf name: scatter dim} of the state's ZeRO-scattered leaves."""
+        if not self.bundle.zero:
+            return {}
+        return {f"{pfx}/{name}": d
+                for pfx in ("params", "opt/m", "opt/v")
+                for name, d in leaf_paths(self.bundle.dims) if d is not None}
+
+    def _place(self, name: str, t: torch.Tensor, dims: dict) -> torch.Tensor:
+        """A restored full leaf as this rank holds it: its shard along its
+        dim of `dims` (ZeRO: the reference reshards on restore), on the
+        bundle's device."""
+        d = dims.get(name)
+        if d is not None:
+            t = shard_leaf(t, d, self.mesh.data_index, self.mesh.data)
+        return t.to(self.bundle.device)
+
+    def _barrier(self) -> None:
+        if self.mesh.world_group is not None:
+            dist.barrier(group=self.mesh.world_group)
+
+    def _from_rank0(self, value):
+        """Rank 0's `value` on every rank."""
+        if self.mesh.world_group is None:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.world_group)
+        return box[0]
+
+    def _restore(self) -> bool:
+        """Restore every rank from the newest checkpoint rank 0 sees (the
+        replica mirror when the primary directory has none); False when
+        there is none.  Rank 0's pending save lands first."""
+        if self.writer:
+            self.manager.wait()
+        self._barrier()
+        want = None
+        if self.writer and self.manager.has_checkpoint():
+            steps = self.manager.steps() or self.manager._steps_in(
+                self.manager.replica_dir)
+            want = steps[-1]
+        want = self._from_rank0(want)
+        if want is None:
+            return False
+        dims = self._scatter_dims()
+        self.state, manifest = self.manager.restore(
+            self._like(), step=want, place=lambda n, t: self._place(n, t, dims))
+        self.step = manifest["step"]
+        return True
+
+    def _save(self, block: bool) -> None:
+        """Rank 0 saves the state (under ZeRO, pod 0's data ranks first
+        gather their shards to it); the other ranks wait at a barrier."""
+        state = self.state
+        if self.bundle.zero and self.mesh.pod_index == 0:
+            dims = {"params": self.bundle.dims, "opt": {
+                "m": self.bundle.dims, "v": self.bundle.dims, "step": None}}
+            group = self.mesh.data_group
+            state = tree_map(lambda x, d: x if d is None else
+                             all_gather_dim(x, d, group), state, dims)
+        if self.writer:
+            self.manager.save(self.step, state, block=block)
+        self._barrier()
+
     def init_or_restore(self, seed: int = 0) -> str:
-        """Fresh state from `seed` (under ZeRO, this rank's shards of it)."""
+        """The newest checkpoint when there is one ("restored"), else fresh
+        state from `seed` (under ZeRO, this rank's shards of it)."""
+        if self.manager is not None and self._restore():
+            return "restored"
         self.state = self.bundle.init_state(seed)
         return "initialized"
 
@@ -219,14 +330,31 @@ class Trainer:
                                "before run()")
         target = self.step + num_steps
         dev = self.bundle.device
+        # bounded recovery: restores are paced by the RetryPolicy schedule
+        # (modeled backoff; a successful step resets the incident streak)
+        retry = RetryState(self.retry)
         while self.step < target:
             batch = self._place_batch(next(data_iter))
             ran = self.bundle
             t0 = time.perf_counter()
+            fault = self._fault(self.step)
+            if fault is not None:
+                delay = retry.next_delay_s()
+                if delay is None:
+                    log(f"[fault] step {self.step}: {type(fault).__name__}: "
+                        f"{fault}; recovery budget exhausted "
+                        f"({self.retry.max_attempts} attempts)")
+                    raise fault
+                log(f"[fault] step {self.step}: {type(fault).__name__}: "
+                    f"{fault}; restoring latest checkpoint "
+                    f"(backoff {delay*1e3:.0f}ms modeled)")
+                self._recover()
+                continue
             self.state, metrics = ran.fn(self.state, batch)
             loss = float(metrics["loss"])
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            retry.reset()
             dt = time.perf_counter() - t0
             fresh, self._fresh = self._fresh, False
             if fresh:
@@ -235,6 +363,7 @@ class Trainer:
                 straggler = self.detector.observe(self.step, dt)
                 if self.rc.comm.mode != "flat":   # flat: path carries nothing
                     get_telemetry().record(ran.path.key, dt, step=self.step)
+                    self._record_hop_samples(dt)
             tuner_s = None
             if self.tuner is not None:
                 tuner_s = self._slowest(dt)
@@ -269,7 +398,49 @@ class Trainer:
                     f"gnorm {rec['grad_norm']:.3f} {dt*1e3:.0f}ms"
                     + (" [straggler]" if straggler else ""))
             self.step += 1
+            if self.manager and self.step % self.ckpt_every == 0:
+                self._save(block=False)
+        if self.manager:
+            self._save(block=True)
+            # ship the final checkpoint to the replica site now, not at the
+            # background gatherer's next tick (the run may be over by then)
+            if self.writer:
+                self.manager.replicate_now()
+            self._barrier()
         return self.history
+
+    def _fault(self, step: int) -> Optional[Exception]:
+        """Run the fault hook; the fault any rank's hook raised (an
+        ``InjectedFault`` standing for one raised elsewhere), or None.  The
+        ranks agree by an all-reduce of a fault flag, so all recover or
+        none does."""
+        if self.fault_hook is None:
+            return None
+        fault = None
+        try:
+            self.fault_hook(step)
+        except _RECOVERABLE as e:
+            fault = e
+        if self.mesh.world_group is not None:
+            flag = torch.tensor([0 if fault is None else 1], dtype=torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                            group=self.mesh.world_group)
+            if int(flag) and fault is None:
+                fault = InjectedFault(f"a fault on another rank at step {step}")
+        return fault
+
+    def _record_hop_samples(self, dt: float) -> None:
+        """Per-hop telemetry for a multi-hop train path: split the step's
+        wall time across hops by `autotune.hop_shares` (the same modeled
+        split RouteTuner feeds its controllers with)."""
+        path = self.bundle.path
+        if not path.hops:
+            return
+        tel = get_telemetry()
+        plan = tel.path(path.key).plan
+        shares = hop_shares(path.route, plan.payload_bytes if plan else 0)
+        for i in range(path.n_hops):
+            tel.record(path.hop_key(i), dt * shares[i], step=self.step)
 
     def _slowest(self, dt: float) -> float:
         """The largest step time over every rank (`dt` with one rank): what
@@ -299,6 +470,7 @@ class Trainer:
         key = self._cfg_key(cfg)
         if key not in self._bundles:
             self._bundles[key] = build_train_step(self.rc, self.mesh,
+                                                  route=self.route,
                                                   site_groups=self.site_groups)
             self._fresh = True
         self.bundle = self._bundles[key]
@@ -312,8 +484,49 @@ class Trainer:
             + (f" algo={cfg['algo']}" if "algo" in cfg else "")
             + (f" bucket={cfg['bucket_mb']}MiB" if "bucket_mb" in cfg else ""))
 
+    # -- routes and recovery --------------------------------------------------
+    def apply_route(self, new_route, log: Callable[[str], None] = print) -> None:
+        """Swap the training path onto a replanned route, between steps: the
+        live state carries over untouched (its layout is the same on every
+        route), the bundles built for the old route are dropped, and the
+        tuner restarts its climb from the incumbent."""
+        self.route = new_route
+        self._bundles.clear()        # keyed by knobs, not route: invalidate
+        self.bundle = build_train_step(self.rc, self.mesh, route=new_route,
+                                       site_groups=self.site_groups)
+        self._fresh = True
+        if self.tuner is not None:
+            self.tuner.abort_probe()
+            self.tuner.converged = False
+            self.tuner.best_cost = None
+        log(f"[chaos] step {self.step}: route replanned -> "
+            + " -> ".join(str(s) for s in getattr(new_route, 'sites', ())))
+
+    def failover_to_replica(self, log: Callable[[str], None] = print) -> str:
+        """Whole-site loss, driven by the chaos monitor: queued with it."""
+        raise queued("failover_to_replica (whole-site loss)",
+                     "topology, chaos and elasticity")
+
+    def _recover(self) -> None:
+        if not self.manager or not self._restore():
+            raise RuntimeError("fault with no checkpoint to restore from")
+
     def close(self) -> None:
-        """Nothing to flush: no checkpoint manager is ported yet."""
+        if self.manager:
+            self.manager.close()
+
+
+class InjectedFault(RuntimeError):
+    """Raised by test fault hooks to simulate node failure."""
+
+
+_RECOVERABLE = (InjectedFault,)
+
+
+def elastic_restart(rc: RunConfig, old_trainer: Trainer, new_mesh, **kw) -> Trainer:
+    """Restart on a resized mesh: queued with elastic membership."""
+    raise queued("elastic_restart (a resized mesh)",
+                 "topology, chaos and elasticity")
 
 
 def _knobs(path) -> dict:

@@ -21,8 +21,8 @@ Trainer's and the launcher's other keywords and flags of the reference.
   no codec the flush bundle's hooks fire in its step alone, and sites of
   one pod each (every pod a gateway) give the plain sync's bits.
 * **§C 8**: ``Trainer(replica_dir=, ckpt_every=, keep=, site_groups=,
-  retry=)`` and ``launch/train.py --ckpt-every / --lease-steps``: each
-  works or raises ``NotImplementedError`` naming its ROADMAP item.
+  retry=)`` (``replica_dir`` and ``retry`` ported since) and
+  ``launch/train.py --ckpt-every / --lease-steps``: each works or raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -339,17 +339,24 @@ def _one_pod():
     return make_local_mesh(device="cpu")
 
 
-def test_trainer_replica_dir_names_its_item():
+def test_trainer_replica_dir_names_its_item(tmp_path):
+    """Ported since: `replica_dir` goes to the checkpoint manager, and is
+    unused without `ckpt_dir`, as in the reference."""
     from repro_torch.runtime.train_loop import Trainer
-    with pytest.raises(NotImplementedError, match="facade, relays, files, checkpoints"):
-        Trainer(_rc(), _one_pod(), replica_dir="/nonexistent/replicas")
+    assert Trainer(_rc(), _one_pod(), replica_dir=str(tmp_path / "r")).manager is None
+    tr = Trainer(_rc(), _one_pod(), ckpt_dir=str(tmp_path / "c"),
+                 replica_dir=str(tmp_path / "r"))
+    assert tr.manager.replica_dir == str(tmp_path / "r")
+    assert tr.manager.transfer is None     # no route: the local mirror
 
 
 def test_trainer_retry_names_its_item():
+    """Ported since: the fault-recovery budget, the reference's default 8."""
     from repro_torch.core.retry import RetryPolicy
     from repro_torch.runtime.train_loop import Trainer
-    with pytest.raises(NotImplementedError, match="facade, relays, files, checkpoints"):
-        Trainer(_rc(), _one_pod(), retry=RetryPolicy(max_attempts=2))
+    assert Trainer(_rc(), _one_pod(), retry=RetryPolicy(max_attempts=2)
+                   ).retry.max_attempts == 2
+    assert Trainer(_rc(), _one_pod()).retry.max_attempts == 8
 
 
 def test_trainer_keeps_ckpt_every():

@@ -194,7 +194,7 @@ def test_train_launcher_refuses_unported_flags():
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit, match="ROADMAP"):
         main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
-              "--route", "amsterdam:tokyo"])
+              "--chaos-drop", "4"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
               "--local-steps", "4"])
