@@ -68,8 +68,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             the psum path's modeled wire, and the int8 wire blocks used.  Then quant
             and dequant against their plain versions and timed at the wire
             block shape the int8 ring run used most;
-11. sites   ``runtime.Trainer`` driven in four spawned ranks on the card:
-            full-width qwen1.5-0.5b on 2 sites x 2 pods (``site_groups``
+11. sites   (``CUT_SPEC``: 2 of the 24 layers, as ckpt and facade)
+            ``runtime.Trainer`` driven in four spawned ranks on the card:
+            qwen1.5-0.5b on 2 sites x 2 pods (``site_groups``
             from a ``core/topology.py`` Topology), 3 steps each of the
             gateway ring with int8 and the masked psum with no codec, and
             the plain 4-pod run: replicas bit-identical after every step,
@@ -89,7 +90,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             plain 4-pod int8 run: replicas bit-identical, step 1's loss the
             plain run's, the per-hop plans the host planner's, per-hop
             samples, quant and dequant once per chunk;
-14. ckpt    the route run with checkpoints every 2 steps (keep 1), the
+14. ckpt    (``CUT_SPEC``) the route run with checkpoints every 2 steps (keep 1), the
             replica shipped over the route with mpw-cp, and a fault on one
             rank at step 3: every rank restores the step-2 checkpoint
             (its checksum the saved one's), the recovered steps equal a
@@ -99,10 +100,34 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             restore seconds and the per-hop wire bytes;
 15. facade  one ``MPW`` session a rank on the 4-pod mesh: SendRecv, Cycle,
             Relay and Forward (both ways) over the tokyo -> espoo Forwarder
-            of a full-width f32 tree, SendRecv and ISendRecv/Wait over one
-            link, DSendRecv, Barrier, the int8 AllReduce against the plain
-            sum; FileCopy of the ckpt phase's checkpoint along the route,
-            failing its CRC first, then resumed; each verb's GB/s.
+            of an f32 tree shaped like the parameters (``CUT_SPEC``),
+            SendRecv and ISendRecv/Wait over one link, DSendRecv, Barrier,
+            the int8 AllReduce against the plain sum; FileCopy of the ckpt phase's checkpoint along the route,
+            failing its CRC first, then resumed; each verb's GB/s;
+16. chaos   the Trainer on the 4 CosmoGrid pods with the backup link, the
+            amsterdam -> tokyo route, no codec: a control run and a run with
+            the light path dropped at step 4 under a ``ChaosMonitor``, 8
+            steps each: the timeline inject 4, detect 5, replan 5, retune 5,
+            recover 7 on every rank, the detour via edinburgh, losses within
+            1e-6 of the control's, replicas bit-identical, the new hops'
+            plans the host planner's; then tokyo partitioned at step 7 with
+            checkpoints every 5 steps and the replica over the route, the
+            primary removed after 6 steps: failover restored at step 6 with
+            the saved checksum on every rank;
+17. elastic local SGD every 4 steps on the CosmoGrid star with a
+            ``SiteMembership``, tokyo's link down for steps 6-14, 20 steps:
+            the reference's ten golden rows on every rank, members
+            bit-identical after every delta sync, tokyo amsterdam's after
+            the catch-up, the ``{key}/delta`` plans the host planner's, the
+            3-site baseline within 0.25; then ``elastic_restart`` of a 2 x 2
+            ZeRO Trainer onto 1 pod x 4 data ranks, the saved parameters
+            restored;
+18. serve_chaos (run after the engine phase, on its weights and requests)
+            the 16 requests disaggregated amsterdam -> tokyo over the
+            CosmoGrid route with its backup link, the light path dropped over
+            the middle requests' ships: the mono tokens bit for bit, reships
+            and a reroute, every ship's per-hop wire bytes its hops' plan;
+            then with no detour the engine degrades and completes them all.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -126,8 +151,9 @@ HBM_BPS = 3.35e12            # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
-PHASES = ("env", "build", "kernels", "small", "engine", "profile", "train", "zero",
-          "buckets", "ring", "sites", "autotune", "route", "ckpt", "facade")
+PHASES = ("env", "build", "kernels", "small", "engine", "serve_chaos", "profile",
+          "train", "zero", "buckets", "ring", "sites", "autotune", "route", "ckpt",
+          "facade", "chaos", "elastic")
 CODECS = ("none", "bf16", "int8")
 
 
@@ -708,7 +734,7 @@ def full_width(torch, dev):
     return cfg, params, time.perf_counter() - t0
 
 
-def phase_engine(torch, dev, cfg, params) -> dict:
+def phase_engine(torch, dev, cfg, params) -> tuple:
     import numpy as np
     from repro_torch.configs import CommConfig, RunConfig, ShapeConfig, TrainConfig
     from repro_torch.core.kvship import kv_cache_bytes, plan_kv_ship
@@ -775,6 +801,7 @@ def phase_engine(torch, dev, cfg, params) -> dict:
         dec = sorted(eng.timings["decode_s"])
         runs[label] = {
             "results": dict(eng.results), "launches": launches,
+            "timeline": eng.batcher.timeline(),
             "summary": {
                 "wall_s": wall, "tokens": total_tokens, "tokens_per_s": total_tokens / wall,
                 "mean_prefill_ms": 1e3 * float(np.mean(eng.timings["prefill_s"])),
@@ -794,12 +821,14 @@ def phase_engine(torch, dev, cfg, params) -> dict:
     check(all(l8[k] > 0 for k in SERVING_KERNELS),
           f"int8 run launched every serving kernel: {l8}")
     agree = float(np.mean([np.mean(mono[r] == q8[r]) for r in mono]))
+    ctx = {"reqs": reqs, "rc": rc, "mono_results": mono,
+           "mono_timeline": runs["mono"]["timeline"]}
     return {"arch": cfg.name,
             "params": int(sum(p.numel() for p in _leaves(params))),
             "requests": len(reqs),
             "mono_disagg_bit_identical": True,
             "int8_token_agreement_with_mono": agree,
-            "launches": runs["disagg_int8"]["launches"]}
+            "launches": runs["disagg_int8"]["launches"]}, ctx
 
 
 # ---------------------------------------------------------------------------
@@ -1236,6 +1265,12 @@ def phase_kernels_ring(torch, dev, shape: dict) -> dict:
 # full-width qwen1.5-0.5b, 4096 tokens a pod (one sequence)
 TRAINER_SPEC = {"arch": "qwen1.5-0.5b", "smoke": False, "seq_len": 4096,
                 "device": "cuda", "gloo_timeout_s": 900}
+# the sites, ckpt and facade phases at 2 of the 24 layers (published
+# widths; 181,283,840 parameters, 39 % of the bytes: the embedding stays
+# whole), so that the whole script fits its time with the chaos and
+# elasticity phases.  The route and autotune phases keep their depth: their
+# int8 syncs are the embedding's padded chunks (ROADMAP §C 4) at any depth
+CUT_SPEC = dict(TRAINER_SPEC, layers=2)
 SITE_STEPS = 3
 # (run, algo, codec, site groups on): the gateway ring, the masked psum, and
 # the plain 4-pod hierarchical run they are held to
@@ -1246,12 +1281,23 @@ AUTOTUNE_STEPS = 8
 AUTOTUNE_EVERY = 2
 
 
-def _trainer_rc(spec: dict, n_pods: int, steps: int, comm):
-    from repro_torch.configs import (RunConfig, ShapeConfig, TrainConfig,
-                                     get_config, smoke_config)
+def spec_config(spec: dict):
+    """The model config of a Trainer phase's `spec`: its arch at published
+    widths (smoke-sized with ``smoke``), its depth cut to ``layers`` where
+    the spec sets it (a phase cut to fit the script's time)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
     cfg = get_config(spec["arch"])
     if spec["smoke"]:
         cfg = smoke_config(cfg)
+    if spec.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    return cfg
+
+
+def _trainer_rc(spec: dict, n_pods: int, steps: int, comm):
+    from repro_torch.configs import RunConfig, ShapeConfig, TrainConfig
+    cfg = spec_config(spec)
     # the launcher's TrainConfig for --steps `steps` at its default lr
     return RunConfig(model=cfg, shape=ShapeConfig("train_4k", spec["seq_len"], n_pods,
                                                   "train"), comm=comm,
@@ -1263,8 +1309,14 @@ def _rank_setup(torch, rank: int, world: int, init: str, spec: dict, pods: int):
     """Join the gloo world and build the mesh of `pods` pods x 1 data rank
     on this rank's device (the ranks share the card)."""
     import datetime
+    import resource
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
+    # every stream group is a gloo group with a socket to each peer: a
+    # route's bottleneck hop may use hundreds of streams
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
     timeout = datetime.timedelta(seconds=spec["gloo_timeout_s"])
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
                             timeout=timeout)
@@ -1397,15 +1449,12 @@ def site_plans(spec: dict, run: dict, algo: str, codec: str, sites: int,
     scatter dims (no ZeRO at one data rank), the intra stage unchunked-in-
     one-stream over a site's pods, the WAN stage over the gateways with the
     path's knobs (`run`'s), its wire the gateways' averaged over the pods."""
-    from repro_torch.configs import get_config, smoke_config
     from repro_torch.core import streams as st
     from repro_torch.core.ring import wire_bytes_per_pod
     from repro_torch.models import build_model
     from repro_torch.runtime.step import _eff_grad_leaves
     from repro_torch.sharding import tree_fsdp_dims
-    cfg = get_config(spec["arch"])
-    if spec["smoke"]:
-        cfg = smoke_config(cfg)
+    cfg = spec_config(spec)
     defs = build_model(cfg).param_defs()
     leaves, dims = _eff_grad_leaves(defs, tree_fsdp_dims(defs, 1, 1), 1)
     dims = st.normalize_dims(leaves, dims)
@@ -1423,7 +1472,7 @@ def site_plans(spec: dict, run: dict, algo: str, codec: str, sites: int,
 
 def phase_sites(torch, out_dir: str, spec: dict = TRAINER_SPEC,
                 kernels: bool = True) -> dict:
-    """Full-width qwen1.5-0.5b on 2 sites x 2 pods (four spawned ranks on
+    """`spec`'s qwen1.5-0.5b on 2 sites x 2 pods (four spawned ranks on
     the card), ``Trainer(site_groups=[[0, 1], [2, 3]])`` from a Topology of
     two sites, hierarchical, 3 steps each of the gateway ring with int8 and
     the masked psum with no codec, then the plain 4-pod run.  Checks: the
@@ -1504,7 +1553,7 @@ def phase_sites(torch, out_dir: str, spec: dict = TRAINER_SPEC,
 
 def phase_autotune(torch, out_dir: str, spec: dict = TRAINER_SPEC,
                    kernels: bool = True) -> dict:
-    """Full-width qwen1.5-0.5b on 2 pods (two spawned ranks on the card),
+    """`spec`'s qwen1.5-0.5b on 2 pods (two spawned ranks on the card),
     int8 wire, ``Trainer(autotune_every=2)`` for 8 steps.  Checks: every
     rank ran the same config at every step and noted the same retunes (the
     tuners were fed the same, slowest, step time); at least one retune; the
@@ -1644,8 +1693,7 @@ def _route_rank(rank: int, init: str, out: str, spec: dict) -> None:
             r["hops"] = _hop_rows(path) if path.hops else []
             rep["runs"][name] = r
             del tr
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+            _free(torch, dev)
         with open(os.path.join(out, f"route.rank{rank}.json"), "w") as f:
             json.dump(rep, f)
     except BaseException:
@@ -1660,14 +1708,11 @@ def hop_plans(spec: dict, hops: list) -> list:
     planner on the host: the f32 gradients (no ZeRO at one data rank)
     chunked with each hop's chunk bytes, balanced over its streams, every
     hop carrying the whole payload once (``algo="shift"``)."""
-    from repro_torch.configs import get_config, smoke_config
     from repro_torch.core import streams as st
     from repro_torch.models import build_model
     from repro_torch.runtime.step import _eff_grad_leaves
     from repro_torch.sharding import tree_fsdp_dims
-    cfg = get_config(spec["arch"])
-    if spec["smoke"]:
-        cfg = smoke_config(cfg)
+    cfg = spec_config(spec)
     defs = build_model(cfg).param_defs()
     leaves, dims = _eff_grad_leaves(defs, tree_fsdp_dims(defs, 1, 1), 1)
     dims = st.normalize_dims(leaves, dims)
@@ -1682,7 +1727,7 @@ def hop_plans(spec: dict, hops: list) -> list:
 
 def phase_route(torch, out_dir: str, spec: dict = TRAINER_SPEC,
                 kernels: bool = True) -> dict:
-    """Full-width qwen1.5-0.5b as 4 pods x 1 data rank on the CosmoGrid
+    """`spec`'s qwen1.5-0.5b as 4 pods x 1 data rank on the CosmoGrid
     topology (four spawned ranks on the card), ``Trainer(route=tokyo ->
     espoo, site_groups=topo.pod_groups())``, hierarchical with int8, 3
     steps, then the plain 4-pod int8 run.  Checks: the route's hops are
@@ -1693,7 +1738,13 @@ def phase_route(torch, out_dir: str, spec: dict = TRAINER_SPEC,
     sample of every step but the first; quant and dequant once per chunk
     (the int8 psum) on every rank; the flash kernels and rmsnorm ran."""
     t0 = time.perf_counter()
-    reps = _spawn(torch, _route_rank, 4, out_dir, spec, "route")
+    # the plain 4-pod int8 run's padded gathers (ROADMAP §C 4) take the host
+    # down to ~10 GB available: a lower floor than the other phases'
+    watch = _MemWatch("route", floor_gb=4.0)
+    try:
+        reps = _spawn(torch, _route_rank, 4, out_dir, spec, "route")
+    finally:
+        watch.stop()
     plain = reps[0]["runs"]["plain_int8"]["history"]
     out = {"route": reps[0]["route"], "phase_s": time.perf_counter() - t0}
     for name in ("route_int8", "plain_int8"):
@@ -2066,7 +2117,7 @@ def _rss_gb() -> float:
 
 
 def _facade_tree(torch, defs, rank: int, dev):
-    """A full-width f32 tree shaped like the parameters, drawn from a
+    """An f32 tree shaped like the parameters, drawn from a
     generator seeded by `rank`."""
     from repro_torch.core.tree import tree_map
     gen = torch.Generator(device=dev)
@@ -2082,7 +2133,7 @@ def _facade_rank(rank: int, init: str, out: str, spec: dict) -> None:
     checkpoint along the route, interrupted and resumed."""
     import threading
     import torch
-    from repro_torch.configs import CommConfig, get_config, smoke_config
+    from repro_torch.configs import CommConfig
     from repro_torch.core.api import MPW
     from repro_torch.core.filetransfer import ChecksumError, FileTransfer, file_sha256
     from repro_torch.core.tree import flatten
@@ -2093,9 +2144,7 @@ def _facade_rank(rank: int, init: str, out: str, spec: dict) -> None:
     dist, dev, mesh = _rank_setup(torch, rank, 4, init, spec, pods=4)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     try:
-        cfg = get_config(spec["arch"])
-        if spec["smoke"]:
-            cfg = smoke_config(cfg)
+        cfg = spec_config(spec)
         defs = build_model(cfg).param_defs()
         # each leaf crosses along its scatter dim, as the gradient sync's do:
         # along the stacked layer dim the int8 codec would pad each one-layer
@@ -2237,8 +2286,8 @@ def phase_facade(torch, out_dir: str, spec: dict = TRAINER_SPEC,
                  kernels: bool = True, src_dir: str = None) -> dict:
     """Four spawned ranks on the card, one ``MPW`` session each on a 4-pod
     mesh: ``CreateForwarder(cosmogrid, "tokyo", "espoo")``, then SendRecv,
-    Cycle, Relay and Forward (both directions) of a full-width f32 tree
-    shaped like qwen1.5-0.5b's parameters (a generator seeded by the rank),
+    Cycle, Relay and Forward (both directions) of an f32 tree shaped like
+    the parameters of `spec`'s model (a generator seeded by the rank),
     SendRecv and ISendRecv/Wait over a single link, DSendRecv, Barrier, and
     AllReduce with int8 against the plain sum.  Checks: every verb delivers
     exactly the tree its sender made (checksums of the bits), the int8
@@ -2283,6 +2332,711 @@ def phase_facade(torch, out_dir: str, spec: dict = TRAINER_SPEC,
            "launches_rank0": reps[0]["launches"], "phase_s": time.perf_counter() - t0}
     emit({"phase": "facade", "mesh": "4 pods x 1 (CosmoGrid)",
           "links": "host memory and gloo on one machine", **out})
+    return out
+
+
+# --- slice 10: chaos, elasticity and serving under faults -------------------
+
+CHAOS_STEPS = 8
+CHAOS_FAULT_AT = 4
+CHAOS_TIMELINE = [["inject", 4], ["detect", 5], ["replan", 5], ["retune", 5],
+                  ["recover", 7]]
+CHAOS_LOSS_TOL = 1e-6        # the reference's own bound, detour against control
+CHAOS_WATCHDOG_S = 600.0     # the monitor's timeout_s (see _monitor)
+FAILOVER_STEPS = 6           # a segment: 6 steps, the primary removed, 6 more
+FAILOVER_PARTITION_AT = 7
+FAILOVER_CKPT_EVERY = 5
+CHAOS_BATCHES = 16
+ELASTIC_STEPS, ELASTIC_FAULT, ELASTIC_HEAL = 20, 6, 14
+ELASTIC_LOCAL_STEPS = 4
+ELASTIC_GOLDEN = [
+    ["detect", "tokyo", 6], ["evict", "tokyo", 8],
+    ["resize", "amsterdam,espoo,edinburgh", 8], ["retune", "train:ams-espoo", 8],
+    ["recover", "amsterdam,espoo,edinburgh", 8], ["join", "tokyo", 15],
+    ["resize", "amsterdam,tokyo,espoo,edinburgh", 15], ["catchup", "tokyo", 15],
+    ["retune", "train:ams-espoo", 15], ["recover", "amsterdam,tokyo,espoo,edinburgh", 15]]
+ELASTIC_BASELINE_TOL = 0.25  # the reference's bound on the final losses
+RESTART_STEPS = 2
+
+
+def _timeline(log) -> list:
+    return [[e.kind, e.subject, e.step, dict(e.detail)] for e in log.events()]
+
+
+def _monitor(topo):
+    """The scenario's monitor, with a watchdog above the slowest healthy
+    hop: one sync of the full-width gradients (2.78 GB of psum wire) models
+    at ~214 s over the tokyo-edinburgh backup link, which the default 30 s
+    watchdog would take for a dead link."""
+    from repro_torch.core.chaos import ChaosDetector, ChaosMonitor
+    return ChaosMonitor(topo, "amsterdam", "tokyo", timeout_s=CHAOS_WATCHDOG_S,
+                        detector=ChaosDetector(window=2, min_baseline=2),
+                        recover_after=2)
+
+
+def _free(torch, dev) -> None:
+    """Release what a finished run left cached: device blocks, and the
+    pinned host blocks of its host copies (PyTorch's caching host allocator
+    keeps them; four ranks' int8 gathers of one run and the next, each of
+    its own sizes, outgrew the 96 GiB host in the route phase)."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        host = getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+        if host is None:
+            host = getattr(torch._C, "_host_emptyCache", None)
+        if host is not None:
+            host()
+
+
+def _chaos_runs(torch, dist, dev, mesh, rank: int, spec: dict) -> dict:
+    """One rank's chaos runs (4 pods x 1 data rank, one pod a CosmoGrid
+    site), no codec: the amsterdam -> tokyo Trainer without a fault, then
+    with the light path dropped at CHAOS_FAULT_AT and a ChaosMonitor (backup
+    links), one step a call; then the failover run on the plain topology,
+    tokyo partitioned at FAILOVER_PARTITION_AT, checkpoints every
+    FAILOVER_CKPT_EVERY steps with the replica over the route, the primary
+    removed between its two segments; returns its report."""
+    from repro_torch.configs import CommConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.core.chaos import get_incident_log
+    from repro_torch.core.topology import cosmogrid_topology
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.train_loop import replica_checksum
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    say = print if rank == 0 else (lambda *_: None)
+    home = spec["home"]
+    rc = _trainer_rc(spec, 4, 2 * FAILOVER_STEPS,
+                     CommConfig(mode="hierarchical", compress="none"))
+    data = make_pipeline(DataConfig(vocab_size=rc.model.vocab_size,
+                                    seq_len=spec["seq_len"], global_batch=4),
+                         prefetch=0)
+    batches = [next(data) for _ in range(CHAOS_BATCHES)]
+    log = get_incident_log()
+    rep = {"rank": rank, "runs": {}}
+    for name in ("control", "chaos"):
+        log.clear()
+        tel.get_telemetry().reset()
+        topo = cosmogrid_topology(backup_links=True)
+        mon = None
+        if name == "chaos":
+            topo.connect("amsterdam", "tokyo",
+                         topo.link("amsterdam", "tokyo").drop(CHAOS_FAULT_AT))
+            mon = _monitor(topo)
+        tr = Trainer(rc, mesh, route=topo.route("amsterdam", "tokyo"),
+                     site_groups=topo.pod_groups(), chaos=mon, check_replicas=True)
+        tr.init_or_restore(0)
+        marks = {}
+        apply0 = tr.apply_route
+
+        def apply_route(new_route, log=print):
+            marks["detect"] = time.perf_counter()
+            apply0(new_route, log=log)
+        tr.apply_route = apply_route
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        it, ends = iter(batches), []
+        for _ in range(CHAOS_STEPS):
+            tr.run(it, 1, log_every=0, log=say)
+            sync()
+            ends.append(time.perf_counter())
+        r = _run_record(torch, tr, dev, tr.history, ops.launch_counts())
+        r.update(timeline=_timeline(log), route=list(tr.route.sites),
+                 key=tr.bundle.path.key, hops=_hop_rows(tr.bundle.path))
+        if "detect" in marks:
+            # the first step run on the detour is the one after detection
+            i = next(k for k, h in enumerate(tr.history) if h["route"] != ["amsterdam", "tokyo"])
+            r["detect_to_detour_step_s"] = ends[i + 1] - marks["detect"]
+            r["detour_step_s"] = tr.history[i + 1]["time_s"]
+        rep["runs"][name] = r
+        del tr, apply0, apply_route, mon
+        _free(torch, dev)
+
+    log.clear()
+    tel.get_telemetry().reset()
+    topo = cosmogrid_topology()
+    topo.connect("amsterdam", "tokyo", topo.link("amsterdam", "tokyo").partition(
+        "tokyo", at_step=FAILOVER_PARTITION_AT))
+    primary, replica = os.path.join(home, "ck"), os.path.join(home, "rep")
+    tr = Trainer(rc, mesh, route=topo.route("amsterdam", "tokyo"),
+                 site_groups=topo.pod_groups(), ckpt_dir=primary, replica_dir=replica,
+                 ckpt_every=FAILOVER_CKPT_EVERY, keep=1, chaos=_monitor(topo),
+                 check_replicas=True)
+    tr.init_or_restore(0)
+    saved, restored = {}, []
+    save0, restore0 = tr._save, tr._restore
+
+    def save(block):
+        saved[tr.step] = replica_checksum(tr.state)
+        save0(block)
+
+    def restore():
+        sync()
+        t0 = time.perf_counter()
+        ok = restore0()
+        sync()
+        restored.append({"step": tr.step, "s": time.perf_counter() - t0,
+                         "checksum": replica_checksum(tr.state)})
+        return ok
+    tr._save, tr._restore = save, restore
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    it = iter(batches)
+    t0 = time.perf_counter()
+    tr.run(it, FAILOVER_STEPS, log_every=0, log=say)
+    first_s = time.perf_counter() - t0
+    dist.barrier()
+    if rank == 0:
+        # the site's storage is gone, and its mirror with it: a mirror
+        # pass racing the removal would prune the replica (ROADMAP §C 15)
+        tr.manager.gatherer.stop()
+        shutil.rmtree(primary)
+    dist.barrier()
+    t0 = time.perf_counter()
+    tr.run(it, FAILOVER_STEPS, log_every=0, log=say)
+    r = _run_record(torch, tr, dev, tr.history, ops.launch_counts())
+    r.update(timeline=_timeline(log), route=None if tr.route is None else
+             list(tr.route.sites), saved={str(k): v for k, v in saved.items()},
+             restored=restored, final_step=tr.step,
+             segment_s=[first_s, time.perf_counter() - t0],
+             recovery=log.recovery_latencies())
+    if rank == 0:
+        r["ckpt_timings"] = tr.manager.timings
+        r["ckpt_tel"] = {k: v["total_bytes"] for k, v in
+                         tel.get_telemetry().report().items() if k.startswith("ckpt:")}
+    rep["runs"]["failover"] = r
+    tr.close()
+    del tr, save0, restore0, save, restore
+    _free(torch, dev)
+    dist.barrier()
+    return rep
+
+
+def check_chaos(spec: dict, reps: list, kernels: bool = True) -> dict:
+    """The chaos phase's checks on its four ranks' reports.  Full-width
+    qwen1.5-0.5b as 4 pods x 1 data rank on the CosmoGrid
+    topology with its backup link (four spawned ranks on the card), the
+    amsterdam -> tokyo route, no codec, the topology's site groups.  A
+    fault-free control run and the same run with the light path dropped at
+    step 4 under ``ChaosMonitor(ChaosDetector(window=2, min_baseline=2),
+    recover_after=2)``, 8 steps each.  Checks: every rank's incident
+    timeline is inject 4, detect 5, replan 5, retune 5, recover 7, the same
+    on every rank; the route after it amsterdam -> edinburgh -> tokyo; the
+    losses within 1e-6 of the control run's; the replicas bit-identical
+    after every step; the new route's per-hop plans the host planner's.
+    Then the failover: the plain topology, tokyo partitioned at step 7,
+    checkpoints every 5 steps (keep 1) with the replica shipped over the
+    route with mpw-cp (no zlib with no codec), 6 steps, the primary
+    removed, 6 more: inject, detect, failover (``outcome: restored``,
+    ``resume_step`` 6), recover on every rank, the restored state's
+    checksum the one saved at step 6.  The flash kernels and rmsnorm in
+    every run.  Reports step ms, the time from detection to the end of the
+    first step on the detour, and the restore seconds."""
+    out = {"seconds_by_rank": [r["seconds"] for r in reps]}
+    for name in ("control", "chaos", "failover"):
+        runs = [rp["runs"][name] for rp in reps]
+        r0 = runs[0]
+        tag = f"chaos {name}"
+        sums = [[h["checksum"] for h in r["history"]] for r in runs]
+        check(all(s == sums[0] for s in sums), f"{tag}: replicas bit-identical {sums}")
+        losses = [h["loss"] for h in r0["history"]]
+        check(all(math.isfinite(x) for x in losses), f"{tag}: finite losses {losses}")
+        for p, r in enumerate(runs):
+            _kernels_ran(r["launches"], f"{tag} rank {p}", kernels)
+            check(r["timeline"] == r0["timeline"],
+                  f"{tag}: rank {p}'s timeline {r['timeline']} is rank 0's {r0['timeline']}")
+        h = r0["history"]
+        row = {"losses": losses, "steps": [x["step"] for x in h],
+               "step_ms": [1e3 * x["time_s"] for x in h],
+               "sync_ms": [1e3 * x["sync_s"] for x in h],
+               "routes": [x["route"] for x in h], "timeline": r0["timeline"],
+               "streams": r0["streams"], "chunk_bytes": r0["chunk_bytes"],
+               "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in runs],
+               "launches_rank0": r0["launches"]}
+        if name == "chaos":
+            ctl = out["control"]["losses"]
+            check([[k, s] for k, _, s, _ in r0["timeline"]] == CHAOS_TIMELINE,
+                  f"{tag}: timeline {r0['timeline']}")
+            check(r0["route"] == ["amsterdam", "edinburgh", "tokyo"],
+                  f"{tag}: final route {r0['route']}")
+            gap = max(abs(a - b) for a, b in zip(losses, ctl))
+            check(gap <= CHAOS_LOSS_TOL, f"{tag}: losses within {CHAOS_LOSS_TOL} of "
+                  f"the control run's, {gap}")
+            hops = r0["hops"]
+            check([x["name"] for x in hops] == ["amsterdam->edinburgh", "edinburgh->tokyo"],
+                  f"{tag}: hops {[x['name'] for x in hops]}")
+            want = hop_plans(spec, hops)
+            for p, r in enumerate(runs):
+                check([x["plan"] for x in r["hops"]] == want,
+                      f"{tag} rank {p}: hop plans {[x['plan'] for x in r['hops']]} are "
+                      f"the host planner's {want}")
+            row.update(max_loss_diff_to_control=gap, loss_diff_is_zero=gap == 0.0,
+                       hops=[{k: x[k] for k in ("name", "streams", "chunk_bytes", "plan")}
+                             for x in hops], key=r0["key"],
+                       detect_to_detour_step_s_by_rank=[r["detect_to_detour_step_s"]
+                                                        for r in runs],
+                       detour_step_s=r0["detour_step_s"])
+        if name == "failover":
+            kinds = [k for k, *_ in r0["timeline"]]
+            check(kinds == ["inject", "detect", "failover", "recover"],
+                  f"{tag}: timeline {r0['timeline']}")
+            fo = next(d for k, _, _, d in r0["timeline"] if k == "failover")
+            check(fo == {"outcome": "restored", "resume_step": FAILOVER_STEPS},
+                  f"{tag}: failover {fo}")
+            check(r0["route"] is None, f"{tag}: no route after the failover")
+            for p, r in enumerate(runs):
+                rs = r["restored"]
+                check(len(rs) == 1 and rs[0]["step"] == FAILOVER_STEPS
+                      and rs[0]["checksum"] == r["saved"][str(FAILOVER_STEPS)],
+                      f"{tag} rank {p}: restored the step-{FAILOVER_STEPS} state {rs}")
+                check([x["step"] for x in r["history"]] == row["steps"],
+                      f"{tag} rank {p}: steps {[x['step'] for x in r['history']]}")
+            row.update(restore_s_by_rank=[r["restored"][0]["s"] for r in runs],
+                       segment_s=r0["segment_s"], recovery=r0["recovery"],
+                       ckpt_timings=r0["ckpt_timings"], ckpt_wire=r0["ckpt_tel"])
+        out[name] = row
+        emit({"phase": "chaos", "mesh": "4 pods x 1 (CosmoGrid)", "run": name, **row})
+    return out
+
+
+def delta_plan(spec: dict, run: dict, members: int, pods: int = 4) -> dict:
+    """The ``{key}/delta`` plan of a delta sync of `spec`'s model from the
+    port's planner on the host: the f32 parameters (one data rank, so whole
+    leaves, chunked along dim 0), the path's knobs (`run`'s), the member
+    gateways' psum, its wire averaged over the pods."""
+    from repro_torch.core import streams as st
+    from repro_torch.core.ring import wire_bytes_per_pod
+    from repro_torch.models import build_model
+    from repro_torch.runtime.step import _eff_grad_leaves
+    from repro_torch.sharding import tree_fsdp_dims
+    cfg = spec_config(spec)
+    defs = build_model(cfg).param_defs()
+    leaves, _ = _eff_grad_leaves(defs, tree_fsdp_dims(defs, 1, 1), 1)
+    chunks = st.plan_chunks(leaves, st.normalize_dims(leaves, None), run["chunk_bytes"])
+    wire = wire_bytes_per_pod(sum(c.nbytes for c in chunks), members, algo="psum",
+                              compress="none") * members / pods
+    return st.plan_summary(chunks, st.assign_streams(chunks, run["streams"]),
+                           run["streams"], run["chunk_bytes"], run["pacing"],
+                           algo="psum", world=members, compress="none",
+                           wire_bytes=int(round(wire)))
+
+
+def _params_checksum(tr) -> int:
+    """The checksum of a ZeRO Trainer's whole parameters, the shards
+    gathered over each pod's data group (the moments, restored by the same
+    code, are left out: gathering 4.6 GB twice costs the script ~15 s)."""
+    from repro_torch.core.collectives import all_gather_dim
+    from repro_torch.core.tree import tree_map
+    from repro_torch.runtime.train_loop import replica_checksum
+    return replica_checksum(tree_map(
+        lambda x, d: x if d is None else all_gather_dim(x, d, tr.mesh.data_group),
+        tr.state["params"], tr.bundle.dims))
+
+
+def _elastic_runs(torch, dist, dev, mesh, rank: int, spec: dict) -> dict:
+    """One rank's elastic runs (4 pods x 1 data rank on the CosmoGrid star):
+    local SGD every ELASTIC_LOCAL_STEPS steps with a SiteMembership
+    coordinated by amsterdam, tokyo's only link down for steps
+    ELASTIC_FAULT..ELASTIC_HEAL, ELASTIC_STEPS steps, each delta sync and
+    the catch-up recorded; the 3-site baseline; then a 2 x 2 ZeRO Trainer
+    restarted as 1 pod x 4 data ranks; returns its report."""
+    from repro_torch.configs import CommConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.core.chaos import get_incident_log
+    from repro_torch.core.membership import SiteMembership
+    from repro_torch.core.topology import cosmogrid_topology
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import Trainer, elastic_restart
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.train_loop import replica_checksum
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    home = spec["home"]
+    ds0, cu0 = train_loop.build_delta_sync, train_loop.build_catchup
+    try:
+        rc = _trainer_rc(spec, 4, ELASTIC_STEPS, CommConfig(
+            mode="hierarchical", compress="none", local_steps=ELASTIC_LOCAL_STEPS))
+        data = make_pipeline(DataConfig(vocab_size=rc.model.vocab_size,
+                                        seq_len=spec["seq_len"], global_batch=4),
+                             prefetch=0)
+        batches = [next(data) for _ in range(ELASTIC_STEPS)]
+        cur, syncs, catchups = [None], [], []
+
+        def build_delta_sync(rc_, mesh_, bundle, **kw):
+            fn = ds0(rc_, mesh_, bundle, **kw)
+            if fn is None:
+                return None
+
+            def timed(params, anchor):
+                full = anchor is not cur[0]._anchor
+                sync()
+                t0 = time.perf_counter()
+                got = fn(params, anchor)
+                sync()
+                s = time.perf_counter() - t0
+                plan = tel.get_telemetry().path(f"{bundle.path.key}/delta").plan
+                syncs.append({"step": cur[0].step, "full": full, "s": s,
+                              "checksum": replica_checksum(got),
+                              "gateways": kw["member_gateways"],
+                              "plan": dict(plan.__dict__), "streams": bundle.path.streams,
+                              "chunk_bytes": bundle.path.chunk_bytes,
+                              "pacing": bundle.path.comm.pacing})
+                return got
+            return timed
+
+        def build_catchup(mesh_, bundle, **kw):
+            fn = cu0(mesh_, bundle, **kw)
+
+            def timed(params):
+                sync()
+                t0 = time.perf_counter()
+                got = fn(params)
+                sync()
+                catchups.append({"step": cur[0].step, "s": time.perf_counter() - t0,
+                                 "checksum": replica_checksum(got),
+                                 # -0.0 as +0.0: what the masked sum delivers
+                                 "checksum_plus_zero": replica_checksum(
+                                     tree_map(lambda p: p + 0.0, got)),
+                                 **{k: kw[k] for k in ("source_pod", "target_pods")}})
+                return got
+            return timed
+        train_loop.build_delta_sync, train_loop.build_catchup = build_delta_sync, build_catchup
+        log = get_incident_log()
+        rep = {"rank": rank, "runs": {}}
+        for name in ("elastic", "baseline"):
+            log.clear()
+            tel.get_telemetry().reset()
+            syncs.clear()
+            catchups.clear()
+            topo = cosmogrid_topology()   # the star: tokyo's one link is to amsterdam
+            fault, heal = (ELASTIC_FAULT, ELASTIC_HEAL) if name == "elastic" else (0, None)
+            for a, b in (("amsterdam", "tokyo"), ("tokyo", "amsterdam")):
+                topo.connect(a, b, topo.link(a, b).drop(fault, until=heal))
+            if name == "elastic":
+                mem = SiteMembership(topo, "amsterdam", lease_steps=2, rejoin_after=2)
+            else:
+                mem = SiteMembership(topo, "amsterdam", lease_steps=2)
+                mem.evict("tokyo", 0, reason="baseline")
+            tr = Trainer(rc, mesh, route=topo.route("amsterdam", "espoo"),
+                         site_groups=topo.pod_groups(), membership=mem, check_replicas=True)
+            cur[0] = tr
+            tr.init_or_restore(0)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            tr.run(iter(batches), ELASTIC_STEPS, log_every=0,
+                   log=print if rank == 0 else (lambda *_: None))
+            r = _run_record(torch, tr, dev, tr.history, ops.launch_counts())
+            r.update(timeline=[[e.kind, e.subject, e.step] for e in log.events()],
+                     details=[dict(e.detail) for e in log.events()], epoch=mem.epoch,
+                     syncs=list(syncs), catchups=list(catchups))
+            rep["runs"][name] = r
+            cur[0] = None
+            del tr, mem
+            _free(torch, dev)
+    finally:
+        train_loop.build_delta_sync, train_loop.build_catchup = ds0, cu0
+    rc2 = _trainer_rc(spec, 4, 2 * RESTART_STEPS,
+                      CommConfig(mode="hierarchical", compress="none"))
+    m22 = make_local_mesh(pod=2, data=2, device=dev, timeout=mesh.timeout)
+    m14 = make_local_mesh(pod=1, data=4, device=dev, timeout=mesh.timeout)
+    tr = Trainer(rc2, m22, ckpt_dir=os.path.join(home, "restart_ck"),
+                 check_replicas=True)
+    tr.init_or_restore(0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    h1 = tr.run(iter(batches), RESTART_STEPS, log_every=0)
+    la1 = ops.launch_counts()
+    saved = _params_checksum(tr)
+    shapes = [list(x.shape) for x in tr.state["params"]["blocks"]["ffn"].values()]
+    sync()
+    t0 = time.perf_counter()
+    t2 = elastic_restart(rc2, tr, m14, check_replicas=True)
+    sync()
+    restart_s = time.perf_counter() - t0
+    del tr
+    _free(torch, dev)
+    restored, restored_step = _params_checksum(t2), t2.step
+    ops.reset_launch_counts()
+    h2 = t2.run(iter(batches[RESTART_STEPS:]), RESTART_STEPS, log_every=0)
+    rep["restart"] = {
+        "zero": t2.bundle.zero, "step": restored_step, "saved": saved,
+        "restored": restored, "restart_s": restart_s,
+        "losses": [h["loss"] for h in h1 + h2],
+        "step_ms": [1e3 * h["time_s"] for h in h1 + h2],
+        "shapes_2x2": shapes,
+        "shapes_1x4": [list(x.shape) for x in t2.state["params"]["blocks"]["ffn"].values()],
+        "launches_2x2": la1, "launches": ops.launch_counts(),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None)}
+    t2.close()
+    del t2
+    _free(torch, dev)
+    return rep
+
+
+def check_elastic(spec: dict, reps: list, kernels: bool = True) -> dict:
+    """The elastic phase's checks on its four ranks' reports.  Full-width
+    qwen1.5-0.5b as 4 pods x 1 data rank on the CosmoGrid star (four spawned ranks on the card), the amsterdam -> espoo route, no
+    codec, local SGD every 4 steps with ``SiteMembership(topo, "amsterdam",
+    lease_steps=2, rejoin_after=2)``, tokyo's link dropped both ways for
+    steps 6-14, 20 steps.  Checks: the incident timeline is the reference's
+    golden ten rows (``tests/test_elastic.py``) on every rank; after every
+    delta sync the member pods' parameters are bit-identical; after the
+    catch-up tokyo's parameters are amsterdam's bit for bit (a ``-0.0``
+    taken as ``+0.0``, as the masked sum gives it); every sync's
+    ``{key}/delta`` plan is the host planner's for its member gateways; the
+    3-site baseline (tokyo evicted at step 0) runs 20 steps and the final
+    losses are within 0.25 of each other.  Then a 2 x 2 ZeRO Trainer, 2
+    steps and a checkpoint, ``elastic_restart`` onto 1 pod x 4 data ranks:
+    restored at step 2 with the saved parameters' checksum (shards gathered),
+    2 more steps with finite losses.  The flash kernels and rmsnorm in
+    every run.  Reports step, delta-sync, full-resync and catch-up ms."""
+    names = ["amsterdam", "tokyo", "espoo", "edinburgh"]
+    out = {"seconds_by_rank": [r["seconds"] for r in reps]}
+    for name in ("elastic", "baseline"):
+        runs = [rp["runs"][name] for rp in reps]
+        r0 = runs[0]
+        tag = f"elastic {name}"
+        for p, r in enumerate(runs):
+            _kernels_ran(r["launches"], f"{tag} rank {p}", kernels)
+            check(all(math.isfinite(h["loss"]) for h in r["history"]),
+                  f"{tag} rank {p}: finite losses")
+            check(r["timeline"] == r0["timeline"] and r["details"] == r0["details"],
+                  f"{tag}: rank {p}'s timeline {r['timeline']} is rank 0's")
+            check(len(r["syncs"]) == len(r0["syncs"]), f"{tag}: syncs on every rank")
+        for i, s in enumerate(r0["syncs"]):
+            members = [p for p in range(4) if p in s["gateways"]]
+            got = {runs[p]["syncs"][i]["checksum"] for p in members}
+            check(len(got) == 1, f"{tag}: sync {i} at step {s['step']}: members "
+                  f"{[names[p] for p in members]} bit-identical, checksums {got}")
+            want = delta_plan(spec, s, len(s["gateways"]))
+            for p, r in enumerate(runs):
+                check(r["syncs"][i]["plan"] == want,
+                      f"{tag} rank {p} sync {i}: plan {r['syncs'][i]['plan']} is the "
+                      f"host planner's {want}")
+        h = r0["history"]
+        row = {"losses": [x["loss"] for x in h], "epoch": r0["epoch"],
+               "timeline": r0["timeline"], "members": [x["members"] for x in h],
+               "step_ms": [1e3 * x["time_s"] for x in h],
+               "sync_ms": [1e3 * x["sync_s"] for x in h],
+               "delta_syncs": [{k: s[k] for k in ("step", "full", "gateways")}
+                               | {"ms": 1e3 * s["s"], "n_chunks": s["plan"]["n_chunks"],
+                                  "wire_bytes": s["plan"]["wire_bytes"]}
+                               for s in r0["syncs"]],
+               "delta_sync_ms_by_rank": [[1e3 * s["s"] for s in r["syncs"]] for r in runs],
+               "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in runs],
+               "launches_rank0": r0["launches"]}
+        if name == "elastic":
+            check(r0["timeline"] == ELASTIC_GOLDEN, f"{tag}: timeline {r0['timeline']}")
+            check(r0["epoch"] == 2, f"{tag}: epoch {r0['epoch']}")
+            cus = [r["catchups"] for r in runs]
+            check(all(len(c) == 1 for c in cus), f"{tag}: one catch-up on every rank {cus}")
+            check(cus[1][0]["checksum"] == cus[0][0]["checksum_plus_zero"],
+                  f"{tag}: tokyo's parameters after the catch-up are amsterdam's "
+                  f"{cus[1][0]['checksum']} {cus[0][0]['checksum_plus_zero']}")
+            row.update(catchup_ms_by_rank=[1e3 * c[0]["s"] for c in cus],
+                       catchup_source_negative_zeros=(cus[0][0]["checksum"]
+                                                      != cus[0][0]["checksum_plus_zero"]))
+        else:
+            check(r0["epoch"] == 1, f"{tag}: tokyo evicted for the whole run")
+            gap = abs(row["losses"][-1] - out["elastic"]["losses"][-1])
+            check(gap < ELASTIC_BASELINE_TOL, f"{tag}: final losses within "
+                  f"{ELASTIC_BASELINE_TOL}, {gap}")
+            row["final_loss_gap_to_elastic"] = gap
+        out[name] = row
+        emit({"phase": "elastic", "mesh": "4 pods x 1 (CosmoGrid star)", "run": name,
+              **row})
+    rs = [rp["restart"] for rp in reps]
+    for p, r in enumerate(rs):
+        check(r["zero"] and r["step"] == RESTART_STEPS,
+              f"elastic restart rank {p}: restored at step {r['step']}")
+        check(r["restored"] == r["saved"] == rs[0]["saved"],
+              f"elastic restart rank {p}: the restored state is the saved one "
+              f"{r['restored']} {r['saved']}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"elastic restart rank {p}: finite losses {r['losses']}")
+        _kernels_ran(r["launches"], f"elastic restart 1x4 rank {p}", kernels)
+        _kernels_ran(r["launches_2x2"], f"elastic restart 2x2 rank {p}", kernels)
+    out["restart"] = {"losses": rs[0]["losses"], "step_ms": rs[0]["step_ms"],
+                      "restart_s_by_rank": [r["restart_s"] for r in rs],
+                      "shapes_2x2": rs[0]["shapes_2x2"], "shapes_1x4": rs[0]["shapes_1x4"],
+                      "peak_mem_gb_per_rank": [(r["peak_mem_bytes"] or 0) / 1e9 for r in rs],
+                      "launches_rank0": rs[0]["launches"]}
+    emit({"phase": "elastic", "mesh": "2 x 2 ZeRO -> 1 x 4 ZeRO", "run": "restart",
+          **out["restart"]})
+    return out
+
+
+SLICE10_RUNS = {"chaos": _chaos_runs, "elastic": _elastic_runs}
+
+
+def _slice10_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One of 4 ranks (4 pods x 1 data rank on the card): the runs of the
+    chaos and elastic phases named in ``spec["runs"]``, one after the other
+    on one mesh (one spawn, one set of stream groups for both); writes its
+    report, each phase's seconds in it."""
+    import torch
+    dist, dev, mesh = _rank_setup(torch, rank, 4, init, spec, pods=4)
+    try:
+        rep = {}
+        for name in spec["runs"]:
+            t0 = time.perf_counter()
+            rep[name] = SLICE10_RUNS[name](torch, dist, dev, mesh, rank,
+                                           dict(spec, home=os.path.join(spec["home"], name)))
+            rep[name]["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out, f"slice10.rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    except BaseException:
+        _say_failed(rank)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_chaos_elastic(torch, out_dir: str, names=("chaos", "elastic"),
+                        spec: dict = TRAINER_SPEC, kernels: bool = True) -> dict:
+    """The chaos and elastic phases (:func:`check_chaos`,
+    :func:`check_elastic`) in one spawn of four ranks on the card, under a
+    host-memory watch; returns each one's results and the spawn's seconds."""
+    t0 = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="chip_smoke_slice10_", dir=out_dir)
+    for name in names:
+        os.makedirs(os.path.join(home, name))
+    watch = _MemWatch("chaos_elastic")
+    # four ranks' caches share the card: the delta syncs' f32 buffers must
+    # reuse each rank's cached activation memory (read by the spawned ranks)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        reps = _spawn(torch, _slice10_rank, 4, out_dir,
+                      dict(spec, home=home, runs=list(names)), "slice10")
+    finally:
+        watch.stop()
+        shutil.rmtree(home, ignore_errors=True)
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    out = {"spawn_s": time.perf_counter() - t0}
+    checks = {"chaos": check_chaos, "elastic": check_elastic}
+    for name in names:
+        out[name] = checks[name](spec, [r[name] for r in reps], kernels)
+    return out
+
+
+def serve_chaos_window(mono_timeline: list, n_requests: int) -> tuple:
+    """The drop window [start, stop) over the engine steps at which the
+    middle requests' KV ships: from one step before the decode start of the
+    (n/2 - 2)-th request to start to four steps after that of the n/2-th
+    (the engine ships at a request's decode start, and a ship tries the
+    dead hop at its step and the next two before it reroutes), so that the
+    first of them reroutes."""
+    steps = sorted(s for kind, _, s in mono_timeline if kind == "decode")
+    check(len(steps) == n_requests, f"serve_chaos: {len(steps)} decode starts")
+    mid = n_requests // 2
+    return steps[mid - 2] - 1, steps[mid] + 4
+
+
+def phase_serve_chaos(torch, dev, cfg, params, ctx: dict) -> dict:
+    """The engine phase's 16 requests on full-width llama3.2-3b,
+    disaggregated amsterdam -> tokyo over the CosmoGrid route with its
+    backup link, no codec, the light path dropped for a window over the
+    middle requests' ships (``launch/serve.py --chaos-drop``'s topology,
+    ``ship_timeout_s=0.5``).  Checks: every request completes with the
+    engine phase's mono tokens bit for bit; at least one reship and one
+    reroute; every ship's per-hop wire bytes the plan's for the hops it
+    took; not degraded; the flash kernels and rmsnorm launched.  Then the
+    plain topology (no detour): the engine degrades to the in-memory
+    handoff and still completes every request with the mono tokens."""
+    import numpy as np
+    from repro_torch.configs import CommConfig
+    from repro_torch.core.chaos import IncidentLog
+    from repro_torch.core.kvship import plan_kv_ship
+    from repro_torch.core.path import WidePath
+    from repro_torch.core.telemetry import get_telemetry
+    from repro_torch.core.topology import Fault, cosmogrid_topology
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServingEngine
+    t_phase = time.perf_counter()
+    reqs, mono = ctx["reqs"], ctx["mono_results"]
+    start, stop = serve_chaos_window(ctx["mono_timeline"], len(reqs))
+    out = {"drop_window": [start, stop]}
+    for label, backup in (("reroute", True), ("no_detour", False)):
+        topo = cosmogrid_topology(backup_links=backup)
+        topo.connect("amsterdam", "tokyo", topo.link("amsterdam", "tokyo").with_fault(
+            Fault("drop", start=start, stop=stop)))
+        route = topo.route("amsterdam", "tokyo")
+        path = WidePath(axis="pod", comm=CommConfig(streams=16), hops=route.as_hops(),
+                        name="kvship")
+        log = IncidentLog()
+        tel = get_telemetry()
+        tel.reset()
+        eng = ServingEngine(ctx["rc"], mode="disagg", path=path, params=params,
+                            route=route, topo=topo, log=log, ship_timeout_s=0.5,
+                            prefill_site="amsterdam", decode_site="tokyo", device=dev)
+        for prompt, mnew in reqs:
+            check(eng.submit(prompt, mnew) is not None, "request admitted")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        tag = f"serve_chaos {label}"
+        check(stats["completed"] == len(reqs), f"{tag}: every request completes {stats}")
+        for rid in mono:
+            check(np.array_equal(eng.results[rid], mono[rid]),
+                  f"{tag}: req{rid} tokens bit-identical to the mono run's")
+        check(launches["flash_attention"] > 0 and launches["rmsnorm"] > 0,
+              f"{tag}: flash and rmsnorm kernels launched {launches}")
+        hops_taken = {}
+        for rid, res in eng.ships.items():
+            prompt = reqs[rid][0]
+            shape = (cfg.num_layers, len(prompt), cfg.num_kv_heads, cfg.resolved_head_dim)
+            plan = plan_kv_ship({n: torch.empty(shape, dtype=torch.bfloat16, device="meta")
+                                 for n in ("k", "v")}, path)
+            names = [f"{a}->{b}" for a, b in zip(res.route, res.route[1:])]
+            key = f"serve/req{rid}/kv"
+            got = [tel.path(f"{key}/hop{i}:{n}").total_bytes for i, n in enumerate(names)]
+            check(got == [plan.wire_bytes_hop] * len(names)
+                  and tel.path(key).total_bytes == plan.wire_bytes_hop * len(names)
+                  == res.wire_bytes_total,
+                  f"{tag}: req{rid} per-hop wire bytes {got} are the plan's "
+                  f"{plan.wire_bytes_hop} over {names}")
+            hops_taken[rid] = names
+        total_tokens = int(sum(len(t) for t in eng.results.values()))
+        row = {"wall_s": wall, "tokens": total_tokens, "tokens_per_s": total_tokens / wall,
+               "mean_prefill_ms": 1e3 * float(np.mean(eng.timings["prefill_s"])),
+               "mean_ship_ms": 1e3 * float(np.mean(eng.timings["ship_s"])),
+               "reships": stats["reships"], "reroutes": stats["reroutes"],
+               "degraded": stats["degraded"], "shipped": len(eng.ships),
+               "hops_taken": {str(k): v for k, v in hops_taken.items()},
+               "incidents": [[r["event"], r["subject"], r["step"]] for r in log.timeline()],
+               "launches": launches}
+        if backup:
+            check(stats["reships"] >= 1 and stats["reroutes"] >= 1,
+                  f"{tag}: at least one reship and one reroute {stats}")
+            check(not stats["degraded"], f"{tag}: not degraded")
+            check(any(len(v) == 2 for v in hops_taken.values()),
+                  f"{tag}: a ship took the detour {hops_taken}")
+        else:
+            check(stats["degraded"], f"{tag}: degraded with no detour")
+            check(len(eng.ships) < len(reqs), f"{tag}: the ships stopped at the degrade")
+        out[label] = row
+        emit({"phase": "serve_chaos", "run": label, "drop_window": [start, stop], **row})
+        del eng
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = out["reroute"]["launches"]
     return out
 
 
@@ -2374,22 +3128,28 @@ def main() -> int:
     if "small" in phases:
         emit({"phase": "small", **phase_small(torch, dev)})
     lap("small")
-    eng = {}
-    if "engine" in phases or "profile" in phases:
+    eng, serve_chaos = {}, {}
+    if any(p in phases for p in ("engine", "serve_chaos", "profile")):
         cfg, params, init_s = full_width(torch, dev)
-        if "engine" in phases:
-            eng = phase_engine(torch, dev, cfg, params)
+        if "engine" in phases or "serve_chaos" in phases:
+            eng, ctx = phase_engine(torch, dev, cfg, params)
             emit({"phase": "engine_summary", "param_init_s": init_s, **eng})
+            lap("engine")
+        if "serve_chaos" in phases:
+            serve_chaos = phase_serve_chaos(torch, dev, cfg, params, ctx)
+            emit({"phase": "serve_chaos_summary", "phase_s": serve_chaos["phase_s"]})
+            lap("serve_chaos")
         if "profile" in phases:
             emit({"phase": "profile", "card": smi,
                   **phase_profile(torch, dev, cfg, params)})
         del params
         torch.cuda.empty_cache()
-    lap("engine_profile")
+    lap("profile")
     train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}
-    route, ckpt, facade = {}, {}, {}
+    route, ckpt, facade, chaos, elastic = {}, {}, {}, {}, {}
     if any(p in phases for p in ("train", "zero", "buckets", "ring", "sites",
-                                 "autotune", "route", "ckpt", "facade")):
+                                 "autotune", "route", "ckpt", "facade", "chaos",
+                                 "elastic")):
         import tempfile
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
             if "train" in phases:
@@ -2405,7 +3165,7 @@ def main() -> int:
                 ring = phase_ring(torch, d)
                 lap("ring")
             if "sites" in phases:
-                sites = phase_sites(torch, d)
+                sites = phase_sites(torch, d, spec=CUT_SPEC)
                 lap("sites")
             if "autotune" in phases:
                 tune = phase_autotune(torch, d)
@@ -2414,13 +3174,21 @@ def main() -> int:
                 route = phase_route(torch, d)
                 lap("route")
             if "ckpt" in phases:
-                ckpt = phase_ckpt(torch, d)
+                ckpt = phase_ckpt(torch, d, spec=CUT_SPEC)
                 lap("ckpt")
             if "facade" in phases:
-                facade = phase_facade(torch, d, src_dir=ckpt.get("facade_src"))
+                facade = phase_facade(torch, d, spec=CUT_SPEC,
+                                      src_dir=ckpt.get("facade_src"))
                 lap("facade")
             elif ckpt:
                 shutil.rmtree(os.path.dirname(ckpt["facade_src"]), ignore_errors=True)
+            names = [n for n in ("chaos", "elastic") if n in phases]
+            if names:
+                ce = phase_chaos_elastic(torch, d, names)
+                chaos, elastic = ce.get("chaos", {}), ce.get("elastic", {})
+                emit({"phase": "chaos_elastic", "spawn_s": ce["spawn_s"],
+                      **{f"{n}_s_by_rank": ce[n]["seconds_by_rank"] for n in names}})
+                lap("chaos_elastic")
     if krows and ring:
         wire = phase_kernels_ring(torch, dev, ring["ring_int8"]["top_wire_shape"])
         for name, row in wire.items():
@@ -2441,6 +3209,11 @@ def main() -> int:
         on_route = route.get("route_int8", {}).get("launches_rank0", {})
         on_ckpt = ckpt.get("launches_rank0", {})
         on_facade = facade.get("launches_rank0", {})
+        on_chaos = chaos.get("chaos", {}).get("launches_rank0", {})
+        on_failover = chaos.get("failover", {}).get("launches_rank0", {})
+        on_elastic = elastic.get("elastic", {}).get("launches_rank0", {})
+        on_restart = elastic.get("restart", {}).get("launches_rank0", {})
+        on_serve_chaos = serve_chaos.get("launches", {})
         for name, source, replaces, tol in KERNELS:
             # the row at the training path's shape
             main_row = next(r for r in krows[name] if r.get("on_path") == "train")
@@ -2456,6 +3229,11 @@ def main() -> int:
                          "launches_route_int8_4x1": on_route.get(name, 0),
                          "launches_ckpt_4x1": on_ckpt.get(name, 0),
                          "launches_facade_4x1": on_facade.get(name, 0),
+                         "launches_chaos_4x1": on_chaos.get(name, 0),
+                         "launches_failover_4x1": on_failover.get(name, 0),
+                         "launches_elastic_4x1": on_elastic.get(name, 0),
+                         "launches_restart_1x4": on_restart.get(name, 0),
+                         "launches_serve_chaos": on_serve_chaos.get(name, 0),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
                          **({"ring_wire_block": ring_row} if ring_row else {}),
                          "max_abs_err": main_row["max_abs_err"],

@@ -1,8 +1,7 @@
 """MPWide core of the port: paths, streamed and ring collectives, the
-autotuner, telemetry, relays, the multi-site topology and Forwarder, file
-transfer (mpw-cp), serving, and the MPW_* API.  The chaos layer's detector
-and monitor, elastic membership and local SGD wait for ROADMAP.md queue A
-'topology, chaos and elasticity'."""
+autotuner, telemetry, relays, the multi-site topology and Forwarder, the
+chaos layer, elastic membership and local SGD, file transfer (mpw-cp),
+serving, and the MPW_* API."""
 from repro_torch.core.api import MPW  # noqa: F401
 from repro_torch.core.autotune import (  # noqa: F401
     OnlineTuner,
@@ -12,7 +11,14 @@ from repro_torch.core.autotune import (  # noqa: F401
     simulate_transfer_s,
     tune,
 )
-from repro_torch.core.chaos import IncidentLog, get_incident_log  # noqa: F401
+from repro_torch.core.chaos import (  # noqa: F401
+    ChaosDetector,
+    ChaosMonitor,
+    IncidentLog,
+    get_incident_log,
+    healing_transfer,
+    link_fault_hook,
+)
 from repro_torch.core.buckets import (  # noqa: F401
     Bucket,
     BucketPlan,
@@ -51,6 +57,8 @@ from repro_torch.core.kvship import (  # noqa: F401
     plan_kv_ship,
     ship_kv,
 )
+from repro_torch.core.localsgd import LocalSGDController  # noqa: F401
+from repro_torch.core.membership import QuorumPolicy, SiteMembership  # noqa: F401
 from repro_torch.core.overlap import accum_grads  # noqa: F401
 from repro_torch.core.path import (  # noqa: F401
     ICI,

@@ -18,8 +18,6 @@ Differences from the C++ API:
   * MPW_ISendRecv posts the gloo sends and receives and returns a token
     around their works: ``Has_NBE_Finished`` polls them, ``Wait`` waits and
     returns the received tree.
-  * ``Membership`` and ``setLocalSteps`` wait for ROADMAP.md queue A
-    'topology, chaos and elasticity' and raise naming it.
 """
 from __future__ import annotations
 
@@ -33,7 +31,7 @@ import torch
 from repro_torch.configs.base import CommConfig
 from repro_torch.core import cycle as cy
 from repro_torch.core.autotune import OnlineTuner, RouteTuner, autotune_path
-from repro_torch.core.collectives import queued, streamed_psum
+from repro_torch.core.collectives import streamed_psum
 from repro_torch.core.path import INTERPOD, Hop, WidePath
 from repro_torch.core.telemetry import get_telemetry
 from repro_torch.core.tree import flatten
@@ -58,7 +56,7 @@ class MPW:
     """One MPWide session (MPW_Init .. MPW_Finalize) on this rank of
     `mesh`."""
     paths: dict[int, _PathState] = field(default_factory=dict)
-    membership: Optional[object] = None   # SiteMembership (not ported yet)
+    membership: Optional[object] = None   # SiteMembership, via Membership()
     mesh: Optional[object] = None         # the PodMesh the messages cross
 
     # -- lifecycle ---------------------------------------------------------
@@ -170,15 +168,27 @@ class MPW:
         self.setChunkSize(pid, nbytes)
 
     def setLocalSteps(self, pid: int, k: int) -> None:
-        """Select the local-SGD cadence (beyond the C API): waits for the
-        local-SGD port."""
-        raise queued("setLocalSteps (local SGD)", "topology, chaos and elasticity")
+        """Select the local-SGD cadence (beyond the C API): K > 1 keeps
+        each step's gradient sync inside the site and ships a model delta
+        across the WAN only every K-th step (repro_torch/core/localsgd.py); 1
+        restores the fully synchronous sync.  A Trainer built from this
+        path's CommConfig picks the cadence up at build time."""
+        if k < 1:
+            raise ValueError(f"local steps must be >= 1, got {k}")
+        self.paths[pid].path = self.paths[pid].path.with_(local_steps=int(k))
 
     def Membership(self, topo, coordinator: str, **kw):
-        """Attach elastic site membership (beyond the C API): waits for the
-        membership port."""
-        raise queued("Membership (elastic site membership)",
-                     "topology, chaos and elasticity")
+        """Attach elastic site membership (beyond the C API): lease-based
+        liveness probed over `topo`'s links from the `coordinator` site,
+        monotonic epochs, quorum, evict/rejoin — see
+        repro_torch/core/membership.py.  Keyword args pass through to
+        :class:`~repro_torch.core.membership.SiteMembership` (lease_steps,
+        rejoin_after, quorum, retry, seed, ...).  The session keeps the
+        instance (``self.membership``) so a Trainer and a ChaosMonitor can
+        share it; calling again replaces it."""
+        from repro_torch.core.membership import SiteMembership
+        self.membership = SiteMembership(topo, coordinator, **kw)
+        return self.membership
 
     # -- serving (beyond the C API; the paper's client-server claim) ---------
     def Serve(self, pid: int, *, max_slots: int, queue_limit: int = 64,

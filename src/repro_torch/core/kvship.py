@@ -18,9 +18,11 @@ wire bytes (``numel * element_size`` of what the codec emits), which must
 equal the plan's byte for byte.  Transfer seconds are deterministic modeled
 seconds (`simulate_transfer_s`), never wall clock (mpwlint R5).
 
-Not ported yet: shipping under a topology route's fault schedules (reship,
-reroute, :class:`ShipError`), which waits for the topology and chaos port
-(ROADMAP.md queue A).
+Under a topology route's fault schedules (``ship_kv(route=, step=)``) a
+dead or corrupting hop burns the watchdog and reships after a seeded
+backoff, then reroutes the remaining hops over the topology's surviving
+links, or raises :class:`ShipError` when none is left, as the reference
+does; the KV stays on its device throughout.
 """
 from __future__ import annotations
 
@@ -29,12 +31,21 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import telemetry as tel
-from repro_torch.core.autotune import simulate_transfer_s
+from repro_torch.core.autotune import simulate_hop_s, simulate_transfer_s
 from repro_torch.core.path import WidePath
+from repro_torch.core.retry import KVSHIP_RETRY
 from repro_torch.core.streams import (Chunk, assign_streams, leaf_bytes,
                                       plan_chunks, slice_chunk, stitch_leaf)
 
 QBLOCK = 256   # int8 wire blocking (matches the JAX package's core/compress.py)
+
+# cap on fault responses within one ship — a schedule that keeps cutting
+# every attempt raises ShipError instead of spinning
+_MAX_SHIP_FAULTS = 64
+
+
+class ShipError(RuntimeError):
+    """A KV ship exhausted its reships and found no surviving route."""
 
 
 def kv_cache_bytes(n_layers: int, kv_heads: int, head_dim: int,
@@ -90,9 +101,12 @@ class KVShipResult:
     rid: int
     wire_bytes_hop: int
     wire_bytes_total: int
-    modeled_s: float           # end-to-end (store-and-forward sum)
-    per_hop_s: tuple
+    modeled_s: float           # end-to-end (store-and-forward sum, incl.
+    per_hop_s: tuple           # watchdog timeouts + retry backoffs)
     n_chunks: int
+    reships: int = 0           # failed-hop retries this ship needed
+    reroutes: int = 0          # route replans this ship needed
+    route: tuple = ()          # site names traversed (when routed)
 
 
 def plan_kv_ship(kv_template: dict, path: WidePath) -> KVShipPlan:
@@ -161,16 +175,47 @@ def _encode_decode(arr: torch.Tensor, compress: str) -> tuple:
     return y[:arr.numel()].reshape(arr.shape), wire
 
 
+def _corrupts(health, rid: int, hop: int, attempt: int) -> bool:
+    """Deterministic per-attempt corruption draw against the hop's active
+    ``error_rate`` (seeded by the fault schedule — replays bit-identically,
+    like the file-transfer checksum path)."""
+    if health.error_rate <= 0.0:
+        return False
+    x = ((health.seed * 1000003) ^ (rid * 8191 + hop * 131 + attempt * 7))
+    x &= 0x7FFFFFFF
+    return (x % 10000) / 10000.0 < health.error_rate
+
+
 def ship_kv(kv: dict, plan: KVShipPlan, rid: int, *,
-            step=None) -> tuple[dict, KVShipResult]:
+            step=None, route=None, retry=None, max_reships: int = 2,
+            topo=None, log=None,
+            timeout_s: float = 30.0) -> tuple[dict, KVShipResult]:
     """Ship one request's KV leaves along the plan's path.
 
     Store-and-forward over the route: each hop re-encodes every chunk with
     the hop's wire codec (``none`` arrives bit-identical), records its exact
     encoded bytes and modeled seconds under the request's telemetry keys, and
     hands the decoded payload to the next hop.  Returns (reconstructed KV
-    dict of device tensors, :class:`KVShipResult`)."""
+    dict of device tensors, :class:`KVShipResult`).
+
+    With ``route`` (the ``core/topology.py`` ``Route`` the path was compiled
+    from, its ``LinkProfile`` fault schedules) and ``step``, the fault clock
+    applies per hop: a dead hop, or one whose ``error_rate`` corrupts this
+    attempt (a deterministic seeded draw, counted as a checksum error),
+    burns the ``timeout_s`` watchdog and retries after a seeded ``retry``
+    backoff (``core/retry.py`` ``KVSHIP_RETRY`` by default), logging a
+    ``reship`` incident to ``log``; after ``max_reships`` failures the
+    remaining hops replan from the stranded site over ``topo``'s surviving
+    links (``reroute``).  With no route left, :class:`ShipError` is raised:
+    the batcher's cue to degrade to collocated serving.  The fault gate runs
+    on the host before a hop moves any byte; the KV stays on its device."""
     path = plan.path
+    if max_reships < 0:
+        raise ValueError(f"max_reships must be >= 0, got {max_reships}")
+    if route is not None and len(route.profiles) != path.n_hops:
+        raise ValueError(f"route has {len(route.profiles)} hops but the "
+                         f"plan's path has {path.n_hops} — re-plan after "
+                         f"a topology change")
     arrs = []
     for name, shape in zip(plan.leaf_names, plan.shapes):
         if name not in kv:
@@ -190,9 +235,68 @@ def ship_kv(kv: dict, plan: KVShipPlan, rid: int, *,
                   chunk_bytes=path.chunk_bytes, pacing=path.comm.pacing,
                   load_balance=plan.load_balance, algo="shift",
                   wire_bytes=plan.wire_bytes_hop)
+    pol = KVSHIP_RETRY if retry is None else retry
+    hops = list(path.route)
+    profs = list(route.profiles) if route is not None else [None] * len(hops)
+    sites = list(route.sites) if route is not None else []
+    avoid: set = set()
     per_hop_s = []
     total_s = 0.0
-    for i, hop in enumerate(path.route):
+    reships = reroutes = faults = 0
+    i = 0
+    while i < len(hops):
+        hop = hops[i]
+        prof = profs[i]
+        # fault gate: a dead hop or a corrupted attempt burns the watchdog
+        # and retries; exhausted retries replan the remaining hops
+        attempt = 0
+        while prof is not None and step is not None:
+            if faults > _MAX_SHIP_FAULTS:
+                raise ShipError(f"req{rid}: ship exceeded {_MAX_SHIP_FAULTS} "
+                                f"fault responses at hop {i} ({hop.name})")
+            health = prof.health(int(step) + attempt)
+            corrupt = health.alive and _corrupts(health, rid, i, attempt)
+            if health.alive and not corrupt:
+                break
+            faults += 1
+            total_s += float(timeout_s)
+            if corrupt:
+                tel.note_checksum_error(f"{key}/hop{i}:{hop.name}")
+            if attempt < max_reships:
+                backoff = pol.delay_s(attempt, key=rid * 31 + i)
+                total_s += backoff
+                reships += 1
+                attempt += 1
+                if log is not None:
+                    log.add(int(step) + attempt, "reship", hop.name,
+                            {"rid": rid,
+                             "reason": "corrupt" if corrupt else "dead",
+                             "attempt": attempt,
+                             "backoff_s": round(backoff, 6)})
+                continue
+            # reships exhausted: replan from the stranded site
+            if topo is None:
+                raise ShipError(
+                    f"req{rid}: hop {i} ({hop.name}) still faulty after "
+                    f"{max_reships} reship(s) and no topology to replan on")
+            avoid.add((sites[i], sites[i + 1]))
+            avoid.add((sites[i + 1], sites[i]))
+            try:
+                nr = topo.route(sites[i], sites[-1], avoid=frozenset(avoid))
+            except (KeyError, ValueError):
+                raise ShipError(
+                    f"req{rid}: no surviving route {sites[i]} -> "
+                    f"{sites[-1]} after {reships} reship(s)")
+            reroutes += 1
+            if log is not None:
+                log.add(int(step) + attempt, "reroute", hop.name,
+                        {"rid": rid, "route": list(nr.sites)})
+            hops = hops[:i] + list(nr.as_hops(base_comm=path.comm))
+            profs = profs[:i] + list(nr.profiles)
+            sites = sites[:i] + list(nr.sites)
+            hop = hops[i]
+            prof = profs[i]
+            attempt = 0
         hop_bytes = 0
         pieces: list[list[tuple[Chunk, torch.Tensor]]] = [[] for _ in arrs]
         for c in plan.chunks:
@@ -205,18 +309,28 @@ def ship_kv(kv: dict, plan: KVShipPlan, rid: int, *,
                 f"hop {i} encoded {hop_bytes} wire bytes but the plan "
                 f"promised {plan.wire_bytes_hop} — plan and codec disagree")
         arrs = [stitch_leaf(a, p) for a, p in zip(arrs, pieces)]
-        hop_s = simulate_transfer_s(
-            hop_bytes, hop.link, streams=hop.streams,
-            chunk_bytes=hop.chunk_bytes, pacing=hop.comm.pacing)
+        if prof is not None and step is not None:
+            hop_s = simulate_hop_s(
+                hop_bytes, prof, int(step) + attempt, streams=hop.streams,
+                chunk_bytes=hop.chunk_bytes, pacing=hop.comm.pacing,
+                timeout_s=timeout_s)
+        else:
+            hop_s = simulate_transfer_s(
+                hop_bytes, hop.link, streams=hop.streams,
+                chunk_bytes=hop.chunk_bytes, pacing=hop.comm.pacing)
         per_hop_s.append(hop_s)
         total_s += hop_s
         tel.record(f"{key}/hop{i}:{hop.name}", hop_s, nbytes=hop_bytes,
                    step=step)
+        i += 1
     n_hops = len(per_hop_s)
     tel.record(key, total_s, nbytes=plan.wire_bytes_hop * n_hops, step=step)
+    if reships or reroutes:
+        tel.note_ship_retry(key, reships=reships, reroutes=reroutes)
     return (
         {n: a for n, a in zip(plan.leaf_names, arrs)},
         KVShipResult(rid=rid, wire_bytes_hop=plan.wire_bytes_hop,
                      wire_bytes_total=plan.wire_bytes_hop * n_hops,
                      modeled_s=total_s, per_hop_s=tuple(per_hop_s),
-                     n_chunks=len(plan.chunks)))
+                     n_chunks=len(plan.chunks), reships=reships,
+                     reroutes=reroutes, route=tuple(sites)))

@@ -14,9 +14,9 @@ whose transfers store-and-forward hop by hop (`repro_torch.core.cycle.forward`).
 The port's copy of the JAX package's ``core/topology.py``: only the package
 name in its imports differs.  The port uses its site groups (the
 site-hierarchical gradient sync), its routes and the :class:`Forwarder`
-(training over a route, the MPW facade, mpw-cp and the checkpoint replicas);
-its faults and link health wait for ROADMAP.md queue A 'topology, chaos and
-elasticity'.
+(training over a route, the MPW facade, mpw-cp and the checkpoint replicas),
+and its fault schedules and link health (the chaos monitor, elastic
+membership and the KV ship under faults).
 """
 from __future__ import annotations
 

@@ -5,11 +5,15 @@ serving tier (monolithic or disaggregated prefill/decode over a WAN path).
       --compress int8 --requests 16 --batch 8 --cache-len 2048
   python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke \
       --device cpu --engine mono --requests 4
+  python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke \
+      --device cpu --engine disagg --requests 8 --chaos-drop 2 40
 
-Runs on the CUDA card unless ``--device cpu``.  The JAX launcher's
-``--production-mesh`` and ``--multi-pod`` have no counterpart (the port runs
-on one device); ``--chaos-drop`` waits for the topology and chaos port
-(ROADMAP.md queue A).
+Runs on the CUDA card unless ``--device cpu``.  ``--chaos-drop START STOP``
+(disagg only) serves on the CosmoGrid topology with its backup link and
+drops the amsterdam -> tokyo light path for engine steps [START, STOP): the
+KV ships reship and reroute, and the incident timeline prints at the end.
+The JAX launcher's ``--production-mesh`` and ``--multi-pod`` have no
+counterpart (the port runs on one device).
 """
 from __future__ import annotations
 
@@ -26,13 +30,32 @@ from repro_torch.runtime import Server, ServingEngine
 
 def _run_engine(rc, args) -> None:
     path = None
+    route = topo = log = None
     if args.engine == "disagg":
-        path = WidePath(axis="pod",
-                        comm=CommConfig(streams=args.streams,
-                                        compress=args.compress),
-                        link=WAN_LONDON_POZNAN, name="kvship")
+        comm = CommConfig(streams=args.streams, compress=args.compress)
+        if args.chaos_drop is not None:
+            # CosmoGrid testbed with the backup detour; the primary
+            # amsterdam->tokyo light path drops for the scheduled window
+            from repro_torch.core.chaos import IncidentLog
+            from repro_torch.core.topology import Fault, cosmogrid_topology
+            topo = cosmogrid_topology(backup_links=True)
+            start, stop = args.chaos_drop
+            prof = topo.link("amsterdam", "tokyo").with_fault(
+                Fault("drop", start=start, stop=stop))
+            topo.connect("amsterdam", "tokyo", prof)
+            route = topo.route("amsterdam", "tokyo")
+            log = IncidentLog()
+            path = WidePath(axis="pod", comm=comm, hops=route.as_hops(),
+                            name="kvship")
+        else:
+            path = WidePath(axis="pod", comm=comm, link=WAN_LONDON_POZNAN,
+                            name="kvship")
     eng = ServingEngine(rc, mode=args.engine, path=path, seed=args.seed,
-                        deadline_steps=args.deadline_steps, device=args.device)
+                        route=route, topo=topo, log=log, ship_timeout_s=0.5,
+                        deadline_steps=args.deadline_steps,
+                        prefill_site="amsterdam" if topo else None,
+                        decode_site="tokyo" if topo else None,
+                        device=args.device)
     rng = np.random.default_rng(args.seed)
     S = rc.shape.seq_len
     for _ in range(args.requests):
@@ -50,12 +73,18 @@ def _run_engine(rc, args) -> None:
           f"p99={stats['latency_p99_s']*1e3:.1f}ms "
           f"ttft_p50={stats['ttft_p50_s']*1e3:.1f}ms "
           f"goodput={stats['goodput_tok_s']:.1f} tok/s")
-    if args.deadline_steps:
+    if args.deadline_steps or args.chaos_drop is not None:
         print(f"[serve] slo: attainment={stats['slo_attainment']:.3f} "
-              f"timed_out={stats['timed_out']} shed={stats['shed']}")
+              f"timed_out={stats['timed_out']} shed={stats['shed']} "
+              f"reships={stats['reships']} reroutes={stats['reroutes']} "
+              f"degraded={stats['degraded']}")
+    if log is not None:
+        for row in log.timeline():
+            print(f"[serve] incident: step={row['step']} "
+                  f"{row['event']} {row['subject']} {row['detail']}")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="decode_32k", choices=list(SHAPES))
@@ -77,15 +106,15 @@ def main():
                          "it TIMEOUT; admission sheds hopeless ones)")
     ap.add_argument("--chaos-drop", type=int, nargs=2, default=None,
                     metavar=("START", "STOP"),
-                    help="not ported yet: needs the topology and chaos port")
+                    help="disagg only: run on the CosmoGrid testbed and "
+                         "drop the amsterdam->tokyo light path for steps "
+                         "[START, STOP) — ships reship/reroute and the "
+                         "incident timeline prints at the end")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
-    args = ap.parse_args()
-    if args.chaos_drop is not None:
-        raise SystemExit("--chaos-drop needs the topology and chaos port, "
-                         "queued in ROADMAP.md queue A")
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if cfg.num_heads == 0 and cfg.family == "audio":

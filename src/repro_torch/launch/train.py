@@ -11,6 +11,13 @@
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 4 \
       --device cpu --steps 4 --route tokyo:espoo --compress int8 \
       --ckpt-dir /tmp/ckpt --replica-dir /tmp/replica --ckpt-every 2
+  # WAN-routed with chaos: drop the direct link at step 4, self-heal
+  python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 4 \
+      --device cpu --steps 8 --route amsterdam:tokyo --backup-links --chaos-drop 4
+  # local SGD every 4 steps with elastic membership coordinated by amsterdam
+  python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 4 \
+      --device cpu --steps 8 --route amsterdam:espoo --local-steps 4 \
+      --coordinator amsterdam --lease-steps 2
 
 Runs on the CUDA card unless ``--device cpu``.  ``--ranks N`` (default
 ``--pods``) stands for the JAX launcher's device count: the mesh is ``pods``
@@ -33,14 +40,20 @@ and a restart with the same directory restores the newest checkpoint;
 a route on the 4-site CosmoGrid topology (``core/topology.py``
 ``cosmogrid_topology``, one pod a site, so ``--pods 4``): the gradient sync
 runs over it as a multi-hop path with the topology's site groups, and the
-replicas travel it with mpw-cp, as the JAX launcher does.  The JAX
-launcher's production-mesh, chaos, local-SGD and membership flags are not
-ported yet and stop the launcher naming their ROADMAP item;
-``--lease-steps`` (read with ``--coordinator`` alone) is accepted, as the
-JAX launcher accepts it without ``--coordinator``.  ``--check-replicas`` compares every pod's parameters after
-every step, ``--report`` writes each rank's run as JSON (history, kernel
-launches, the sync plan, peak device memory), ``--profile-step`` runs one
-step of rank 0 under ``torch.profiler``.
+replicas travel it with mpw-cp, as the JAX launcher does.  With a route,
+``--backup-links`` adds the tokyo-edinburgh backup link, ``--chaos-drop
+STEP`` drops the route's direct link at STEP and attaches the self-healing
+``ChaosMonitor`` (reroute, or failover to the replica), ``--coordinator
+SITE`` attaches elastic membership (``SiteMembership`` with
+``--lease-steps``) coordinated from SITE; ``--local-steps K`` is local SGD,
+K site-local steps between cross-site delta syncs.  Every rank builds its
+own topology, monitor and membership from the same flags.  The JAX
+launcher's ``--production-mesh`` and ``--multi-pod`` are not ported yet and
+stop the launcher naming their ROADMAP item.  ``--check-replicas`` compares
+every pod's parameters after every step, ``--report`` writes each rank's
+run as JSON (history, kernel launches, the sync plan, peak device memory,
+the incident timeline), ``--profile-step`` runs one step of rank 0 under
+``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -57,6 +70,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import (SHAPES, CommConfig, RunConfig, ShapeConfig,
                                  TrainConfig, get_config, smoke_config)
+from repro_torch.core.chaos import ChaosMonitor, get_incident_log
+from repro_torch.core.membership import SiteMembership
 from repro_torch.core.telemetry import get_telemetry
 from repro_torch.core.topology import cosmogrid_topology
 from repro_torch.data import DataConfig, make_pipeline
@@ -68,9 +83,6 @@ from repro_torch.runtime import Trainer
 QUEUED_FLAGS = {
     "production_mesh": "tensor parallelism and the production meshes",
     "multi_pod": "tensor parallelism and the production meshes",
-    "backup_links": "topology, chaos and elasticity",
-    "chaos_drop": "topology, chaos and elasticity",
-    "coordinator": "topology, chaos and elasticity",
 }
 
 
@@ -112,14 +124,24 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--route", default=None, metavar="SRC:DST",
                     help="route the sync (and the replicas) over the CosmoGrid "
                          "topology from SRC to DST; needs --pods 4")
-    # the JAX launcher's flags that wait for later slices
+    ap.add_argument("--backup-links", action="store_true",
+                    help="add the tokyo-edinburgh backup to the topology")
+    ap.add_argument("--chaos-drop", type=int, default=None, metavar="STEP",
+                    help="drop the route's direct link at STEP and attach "
+                         "the self-healing ChaosMonitor (reroute/failover)")
+    ap.add_argument("--local-steps", type=int, default=1, metavar="K",
+                    help="local-SGD cadence: K local steps per site between "
+                         "cross-site delta syncs (1 = fully synchronous)")
+    ap.add_argument("--coordinator", default=None, metavar="SITE",
+                    help="attach elastic membership (lease-based liveness, "
+                         "evict/rejoin world resize) coordinated from SITE; "
+                         "needs --route")
+    ap.add_argument("--lease-steps", type=int, default=4,
+                    help="probe failures a suspect site survives before "
+                         "eviction (with --coordinator)")
+    # the JAX launcher's flags that wait for a later slice
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--backup-links", action="store_true")
-    ap.add_argument("--chaos-drop", type=int, default=None)
-    ap.add_argument("--local-steps", type=int, default=1)
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--lease-steps", type=int, default=4)
     return ap
 
 
@@ -141,9 +163,17 @@ def _check_flags(args) -> None:
             raise SystemExit(f"--route runs on the 4-site CosmoGrid topology, "
                              f"one pod a site: it needs --pods 4, got "
                              f"--pods {args.pods}")
-    if args.local_steps != 1:
-        raise SystemExit("--local-steps > 1 (local SGD) is not ported to PyTorch "
-                         "yet (ROADMAP.md queue A, 'topology, chaos and elasticity')")
+        topo = cosmogrid_topology(backup_links=args.backup_links)
+        if args.chaos_drop is not None and topo.link(*ends) is None:
+            raise SystemExit(f"--chaos-drop needs a direct {ends[0]}-{ends[1]} link")
+        if args.coordinator is not None and args.coordinator not in [
+                s.name for s in topo.sites]:
+            raise SystemExit(f"--coordinator {args.coordinator!r} is not a site "
+                             f"of the topology")
+    elif args.coordinator is not None:
+        raise SystemExit("--coordinator needs --route (a multi-site topology)")
+    if args.local_steps < 1:
+        raise SystemExit(f"--local-steps must be >= 1, got {args.local_steps}")
     if args.profile_step is not None and not 0 <= args.profile_step < args.steps:
         raise SystemExit(f"--profile-step {args.profile_step} is not a step of "
                          f"0 .. {args.steps - 1}")
@@ -190,7 +220,8 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
     mesh = make_local_mesh(pod=args.pods, data=args.ranks // args.pods, device=dev)
     if comm is None:
         comm = CommConfig(mode=args.mode, streams=args.streams,
-                          chunk_mb=args.chunk_mb, compress=args.compress)
+                          chunk_mb=args.chunk_mb, compress=args.compress,
+                          local_steps=args.local_steps)
     rc = RunConfig(
         model=cfg, shape=shape, comm=comm,
         train=TrainConfig(lr=args.lr, total_steps=args.steps,
@@ -200,24 +231,35 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
                                     global_batch=gb, kind=args.data,
                                     path=args.data_path))
     say = print if rank == 0 else (lambda *_: None)
-    route = site_groups = None
+    route = site_groups = chaos = membership = None
     if args.route:
         src, dst = args.route.split(":")
-        topo = cosmogrid_topology()
+        topo = cosmogrid_topology(backup_links=args.backup_links)
+        if args.chaos_drop is not None:
+            topo.connect(src, dst, topo.link(src, dst).drop(args.chaos_drop))
+            chaos = ChaosMonitor(topo, src, dst)
+        if args.coordinator:
+            membership = SiteMembership(topo, args.coordinator,
+                                        lease_steps=args.lease_steps)
         route = topo.route(src, dst)
         site_groups = topo.pod_groups()
-        say(f"[train] WAN route: {route.describe()}")
+        say(f"[train] WAN route: {route.describe()}"
+            + (f"; chaos drop at step {args.chaos_drop}"
+               if args.chaos_drop is not None else "")
+            + (f"; membership coordinated by {args.coordinator}"
+               if args.coordinator else ""))
     trainer = Trainer(rc, mesh, ckpt_dir=args.ckpt_dir,
                       replica_dir=args.replica_dir, ckpt_every=args.ckpt_every,
-                      route=route, site_groups=site_groups,
-                      check_replicas=args.check_replicas)
+                      route=route, site_groups=site_groups, chaos=chaos,
+                      membership=membership, check_replicas=args.check_replicas)
     path = trainer.bundle.path
     plan_b = trainer.bundle.bucket_plan
     say(f"[train] {args.arch} params={cfg.param_count():,} mesh={mesh.shape} "
         f"mode={comm.mode} zero={trainer.bundle.zero} compress={comm.compress} "
         f"algo={comm.algo} streams={path.streams} "
         f"chunk={path.comm.chunk_mb}MiB "
-        f"buckets={0 if plan_b is None else len(plan_b.buckets)} device={dev}")
+        f"buckets={0 if plan_b is None else len(plan_b.buckets)} device={dev}"
+        + (f" local_steps={comm.local_steps}" if comm.local_steps > 1 else ""))
     say(f"[train] {trainer.init_or_restore()} at step {trainer.step}")
     ops.reset_launch_counts()
     prof_out = None
@@ -256,6 +298,9 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
               "chunk_mb": path.comm.chunk_mb,
               "plan": None if plan is None else plan.__dict__,
               "route": None if route is None else route.describe(),
+              "final_route": (None if trainer.route is None
+                              else list(trainer.route.sites)),
+              "incidents": get_incident_log().timeline(),
               "hop_plans": {k: tel.path(k).plan.__dict__ for k in path.hop_keys()
                             if path.hops and tel.path(k).plan is not None},
               "bucket_plans": bucket_plans,

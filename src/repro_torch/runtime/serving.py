@@ -18,9 +18,10 @@ and, with the ``none`` codec, give bit-identical tokens.  Modeled WAN seconds
 land in telemetry via the shipper.  Everything runs under
 ``torch.inference_mode()`` on `device` ("cuda" by default).
 
-Not ported yet (ROADMAP.md queue A): shipping under a topology route's fault
-schedules, and the serve failover driven by site membership and the chaos
-incident log.
+With a topology ``route`` each KV ship runs under the route's fault
+schedules (reship, reroute); a ship that finds no surviving route degrades
+the engine to handing the KV over in memory (the collocated fallback,
+``stats()["degraded"]``), as the reference's engine does.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
-from repro_torch.core.kvship import KVShipPlan, plan_kv_ship, ship_kv
+from repro_torch.core.kvship import KVShipPlan, ShipError, plan_kv_ship, ship_kv
 from repro_torch.core.path import WidePath
 from repro_torch.core.serving import ContinuousBatcher
 from repro_torch.runtime.serve_loop import Server
@@ -48,19 +49,31 @@ class ServingEngine:
         (prefill KV is shipped over `path` before decode may start).
     path: the WAN `WidePath` KV caches cross when ``mode="disagg"``.
     params / seed: the parameter tree (else initialized from `seed`).
-    deadline_steps / shed: passed to the batcher — per-request SLOs with
-        shedding.
+    route / topo: the ``core/topology.py`` ``Route`` the path was compiled
+        from plus its topology: with these, each KV ship runs under the
+        route's ``LinkProfile`` fault schedules (reship on a failed hop
+        through `retry`, reroute over `topo` after `max_reships`, each
+        watchdog `ship_timeout_s`); a ``ShipError`` (no route left) degrades
+        the engine to the in-memory KV handoff.
+    deadline_steps / shed / membership / prefill_site / decode_site / log:
+        passed to the batcher: per-request SLOs with shedding, serve
+        failover off evicted sites, incidents into `log`.
     device: where the model runs.
 
     ``timings`` holds host-clock seconds of each prefill (to its first
     token), each KV ship with its landing in the decode cache, and each
-    decode step; each ends in a device synchronisation.
+    decode step; each ends in a device synchronisation.  ``ships`` holds
+    each shipped request's ``KVShipResult``.
     """
 
     def __init__(self, rc: RunConfig, *, mode: str = "mono",
                  path: Optional[WidePath] = None, params=None, seed: int = 0,
                  queue_limit: int = 64, step_s: float = 1e-2,
-                 deadline_steps=None, shed: bool = True, device="cuda"):
+                 route=None, topo=None, retry=None, max_reships: int = 2,
+                 ship_timeout_s: float = 30.0, deadline_steps=None,
+                 shed: bool = True, membership=None,
+                 prefill_site: Optional[str] = None,
+                 decode_site: Optional[str] = None, log=None, device="cuda"):
         if mode not in ("mono", "disagg"):
             raise ValueError(f"mode must be 'mono' or 'disagg', got {mode!r}")
         if mode == "disagg" and path is None:
@@ -73,6 +86,13 @@ class ServingEngine:
         self.rc = rc
         self.mode = mode
         self.path = path
+        self.route = route
+        self.topo = topo
+        self.retry = retry
+        self.max_reships = int(max_reships)
+        self.ship_timeout_s = float(ship_timeout_s)
+        self.log = log
+        self._degraded = False
         self.server = Server(rc, params=params, seed=seed, device=device)
         self.device = self.server.device
         self.model = self.server.bundle.model
@@ -80,7 +100,9 @@ class ServingEngine:
         self.max_len = rc.shape.seq_len
         self.batcher = ContinuousBatcher(
             self.max_slots, queue_limit, prefill_steps=1, ship_steps=0,
-            step_s=step_s, deadline_steps=deadline_steps, shed=shed)
+            step_s=step_s, deadline_steps=deadline_steps, shed=shed,
+            log=log, membership=membership, prefill_site=prefill_site,
+            decode_site=decode_site)
         self.cache = self.server.init_cache()
         self._pos = np.zeros(self.max_slots, np.int64)
         self._tok = np.zeros((self.max_slots, 1), np.int64)
@@ -92,6 +114,7 @@ class ServingEngine:
                                          "decode_s": []}
         self._n_events = 0
         self._ship_plans: dict[tuple, KVShipPlan] = {}
+        self.ships: dict = {}                       # rid -> KVShipResult
 
     # -- request intake -----------------------------------------------------
     def submit(self, prompt_tokens: np.ndarray, max_new: int,
@@ -177,12 +200,25 @@ class ServingEngine:
         first = int(torch.argmax(logits[0, -1]))
         t1 = time.perf_counter()
         kv = {n: pcache[n][:, 0] for n in ("k", "v")}
-        if self.mode == "disagg":
+        if self.mode == "disagg" and not self._degraded:
             geom = tuple(sorted((n, tuple(a.shape)) for n, a in kv.items()))
             if geom not in self._ship_plans:
                 self._ship_plans[geom] = plan_kv_ship(kv, self.path)
-            kv, _res = ship_kv(kv, self._ship_plans[geom], rid,
-                               step=self.batcher.now())
+            try:
+                kv, res = ship_kv(kv, self._ship_plans[geom], rid,
+                                  step=self.batcher.now(), route=self.route,
+                                  retry=self.retry,
+                                  max_reships=self.max_reships,
+                                  topo=self.topo, log=self.log,
+                                  timeout_s=self.ship_timeout_s)
+                self.ships[rid] = res
+                self.batcher.note_ship(rid, reships=res.reships,
+                                       reroutes=res.reroutes)
+            except ShipError as e:
+                # no surviving route: hand the KV over in memory from here
+                # on (collocated mono fallback) and flag it
+                self._degraded = True
+                self.batcher.degrade(reason=str(e))
         for n, leaf in kv.items():
             # in place: the decode cache's buffer is reused, as the JAX
             # package reuses it by donation

@@ -24,7 +24,11 @@ jitted shard_map.
   pods of a site sum first, then only the site gateways cross the WAN.
   A ``route`` (``core/topology.py`` ``Route``) makes the cross-pod path
   multi-hop: the sync runs with the bottleneck hop's knobs and every hop's
-  plan is noted.  Local SGD is queued (ROADMAP.md queue A).
+  plan is noted.  ``local_only=True`` is the local-SGD step: the gradient
+  sync stays inside each site.
+* :func:`build_delta_sync` and :func:`build_catchup`: local SGD's cross-site
+  reconciliation and a rejoined site's catch-up (``core/localsgd.py``), as
+  plain callables over the mesh.
 * :func:`build_serve_step`: prefill / decode on one device, under
   ``torch.inference_mode()``.
 """
@@ -45,7 +49,7 @@ from repro_torch.core import streams as st
 from repro_torch.core import telemetry as tel
 from repro_torch.core.autotune import autotune_path
 from repro_torch.core.collectives import (_note_hop_plans, all_gather_dim,
-                                          psum_group, queued,
+                                          local_site_allreduce, psum_group,
                                           reduce_scatter_dim, streamed_psum,
                                           wide_allreduce)
 from repro_torch.core.overlap import accum_grads, flush_hook, modeled_exposure
@@ -304,11 +308,19 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     multi-hop: per-hop links and knobs from the route's LinkProfiles, the
     bottleneck leg driven by ``rc.comm`` (the autotuner's slot), per-hop
     plans in telemetry.  The bundle's ``replan`` re-notes its plan (a
-    trainer swapping back to a cached bundle calls it)."""
-    if local_only:
-        raise queued("local SGD (local_steps > 1)", "topology, chaos and elasticity")
+    trainer swapping back to a cached bundle calls it).
+
+    `local_only=True` builds the local-SGD step (``CommConfig.local_steps >
+    1``, hierarchical mode only): the gradient sync stays inside each site
+    (a rank-order sum over the site group, the whole pod group without
+    `site_groups`), with no WAN stage, no bucketing and no plan noted, and
+    the gradients are divided by the ranks of one site; the cross-site
+    reconciliation is :func:`build_delta_sync`."""
     if rc.comm.mode not in ("flat", "hierarchical", "gateway"):
         raise ValueError(f"unknown comm mode {rc.comm.mode!r}")
+    if local_only and rc.comm.mode != "hierarchical":
+        raise ValueError(f"local-SGD local steps need comm mode "
+                         f"'hierarchical', got {rc.comm.mode!r}")
     if site_groups is not None:
         total = sorted(p for g in site_groups for p in g)
         if mesh.pod == 1:
@@ -344,7 +356,7 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     # layer range) needs the model's support and no wire codec; tail mode
     # (the post-backward sync bucket by bucket) otherwise
     bucketed = bool(path.bucket_bytes > 0 and rc.comm.mode == "hierarchical"
-                    and zero)
+                    and zero and not local_only)
     use_flush = bool(bucketed and rc.comm.compress == "none"
                      and "flush_segments" in inspect.signature(model.loss).parameters)
     stacked_tree = {k: tree_map(lambda pd: k == "blocks", v)
@@ -360,7 +372,7 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
             bucketed = use_flush = False
             plan = stacked_flags = None
     replan = None
-    if rc.comm.mode != "flat":
+    if rc.comm.mode != "flat" and not local_only:
         replan = functools.partial(_note_path_plan, defs, dims, path, shard,
                                    pod_world, stacked_flags=stacked_flags,
                                    window=window, m_micro=m_micro)
@@ -369,6 +381,11 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     gather_layer, gather_top = _make_gather(defs, dims, zero, mesh.data_group,
                                             inpod)
     dp_world = mesh.pod * mesh.data
+    # local SGD: the gradient mean is over one site's ranks (the sites'
+    # models diverge between delta syncs by design)
+    sync_world = dp_world
+    if local_only and site_groups is not None:
+        sync_world = data_size * len(site_groups[0])
     # this step's sync record: seconds, the chunk log, each bucket's seconds
     cur: dict = {}
 
@@ -411,7 +428,21 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
         return map_with_dims(lambda g, d: psum_group(g, mesh.data_group)
                              if d is None else g, grads, dims_)
 
+    def local_sync(grads):
+        # local SGD: the cross-pod stage stays inside the site (LAN only);
+        # the WAN exchange is the K-step delta sync
+        if zero:
+            pods = (mesh.pod_group if site_groups is None
+                    else mesh.site_group([list(g) for g in site_groups]))
+            return tree_map(lambda g: psum_group(g, pods),
+                            psum_replicated(grads, dims))
+        return local_site_allreduce(grads, path, mesh, dims,
+                                    site_groups=site_groups)
+
     def sync(grads):
+        if local_only:
+            with record():
+                return local_sync(grads)
         if use_flush:
             # the blocks were synced in the backward by the flush hooks;
             # the rest bucket (embedding, final norm) is left
@@ -449,7 +480,7 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
         inpod.update(inpod_stats())
         loss, metrics, grads = accum_grads(grad_fn, params, mbs, sync=sync,
                                            overlap=m_micro > 1)
-        grads = tree_map(lambda g: g.div_(dp_world), grads)
+        grads = tree_map(lambda g: g.div_(sync_world), grads)
         lr = lr_at(state["opt"]["step"], tc, device=dev)
         new_params, new_opt, stats = adamw_update(
             grads, state["opt"], params, tc, lr, dims=dims_or_none,
@@ -472,6 +503,47 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
                       device=dev, mesh=mesh, dims=dims if zero else None,
                       zero=zero, bucket_plan=plan, replan=replan)
+
+
+def build_delta_sync(rc: RunConfig, mesh, bundle: StepBundle, *,
+                     site_groups, member_pods, member_gateways):
+    """Local SGD's cross-site reconciliation for one membership epoch:
+    ``fn(params, anchor) -> params`` on this rank's parameters (under ZeRO
+    its shards), :func:`repro_torch.core.localsgd.delta_sync` over
+    `bundle`'s path with the stored state's scatter dims.  None when there
+    is nothing to reconcile (one pod, no site groups, or fewer than two
+    member sites), as the reference's.  The Trainer builds one per epoch:
+    the members are constants of it.  `rc` is the reference's argument;
+    the path's knobs come from `bundle`."""
+    from repro_torch.core.localsgd import delta_sync
+    del rc
+    if (mesh is None or mesh.pod_group is None or site_groups is None
+            or len(member_gateways) < 2):
+        return None
+    groups = [list(g) for g in site_groups]
+    pods, gws = list(member_pods), list(member_gateways)
+
+    def fn(params, anchor):
+        return delta_sync(params, anchor, bundle.path, mesh, dims=bundle.dims,
+                          site_groups=groups, member_pods=pods,
+                          member_gateways=gws)
+    return fn
+
+
+def build_catchup(mesh, bundle: StepBundle, *, source_pod: int, target_pods):
+    """A rejoined site's catch-up: ``fn(params) -> params`` cloning
+    `source_pod`'s parameters (a surviving gateway) onto `target_pods`
+    (:func:`repro_torch.core.localsgd.catchup`); the other pods' pass
+    through untouched.  None with one pod or no target."""
+    from repro_torch.core.localsgd import catchup
+    del bundle
+    if mesh is None or mesh.pod_group is None or not target_pods:
+        return None
+    targets = list(target_pods)
+
+    def fn(params):
+        return catchup(params, mesh, source_pod=source_pod, target_pods=targets)
+    return fn
 
 
 def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,

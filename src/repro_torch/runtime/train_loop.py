@@ -6,9 +6,8 @@ grad_norm, step seconds, the gradient sync's seconds, chunks and bytes, and
 with a bucketed sync its mode and each bucket's), the straggler detector,
 the path telemetry, site groups (the site-hierarchical gradient sync),
 multi-hop routes with their per-hop samples, online autotuning, and
-checkpoints with fault recovery and replicas.  Chaos, elastic membership
-and local SGD are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item.
+checkpoints with fault recovery and replicas, the chaos monitor's reroute
+and replica failover, elastic site membership and local SGD.
 
 Online autotuning (``autotune_every=N``) is the reference's: an
 ``OnlineTuner`` over the path's knobs, a step bundle built per config and
@@ -34,10 +33,29 @@ fault flag, so no rank is left inside a collective; as in the reference the
 failed step's batch is consumed, not replayed, and the recoveries of one
 streak are bounded by the ``retry`` policy.
 
+Chaos and elasticity (``chaos=``, a ``core/chaos.py`` ``ChaosMonitor``;
+``membership=``, a ``core/membership.py`` ``SiteMembership``; and
+``CommConfig.local_steps > 1``) are the reference's: between steps the
+monitor simulates the route's hops under their fault schedules and reroutes
+(``apply_route``) or fails over to the replica (``failover_to_replica``);
+an epoch change re-forms the delta sync's subgroup, catches rejoined sites
+up from a survivor and resyncs the members (``_reconcile_membership``);
+every K-th step ships the model delta across the sites (``_delta_sync``).
+Every rank has its own monitor, membership and incident log.  Their
+decisions come from step-stamped fault schedules and seeded simulations, so
+every rank reaches the same one at the same step; after the hooks the ranks
+compare their route, membership epoch, members and step (one object
+all-gather) and raise :class:`MembershipDivergence` on a mismatch instead of
+posting different collectives.  An evicted site's ranks stay live and post
+every collective of the delta sync and the catch-up, zeros where the
+reference masks them out.
+
 With ``check_replicas`` the loop holds the data-parallel invariant after
 every step, compared by a checksum of the parameters' bits: without ZeRO
 every rank's parameters must be bit-identical; under ZeRO the ranks of each
 pod group (one data index, one rank per pod) must hold bit-identical shards.
+Under local SGD the sites differ between delta syncs by design: each step's
+checksum is recorded and not compared.
 """
 from __future__ import annotations
 
@@ -54,12 +72,14 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.store import leaf_paths
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.autotune import OnlineTuner, hop_shares
-from repro_torch.core.collectives import all_gather_dim, queued
+from repro_torch.core.collectives import all_gather_dim
+from repro_torch.core.localsgd import LocalSGDController
 from repro_torch.core.retry import RetryPolicy, RetryState
 from repro_torch.core.telemetry import get_telemetry
 from repro_torch.core.tree import flatten, tree_map
 from repro_torch.models.param import shard_leaf
-from repro_torch.runtime.step import StepBundle, build_train_step
+from repro_torch.runtime.step import (StepBundle, build_catchup,
+                                      build_delta_sync, build_train_step)
 
 
 @dataclass
@@ -90,6 +110,11 @@ class StragglerDetector:
 
 class ReplicaDivergence(RuntimeError):
     """Pod ranks hold different parameters after a step."""
+
+
+class MembershipDivergence(RuntimeError):
+    """Ranks disagree on the route, the membership or the step after the
+    chaos and membership hooks."""
 
 
 # odd multiplier of the element weights; products wrap mod 2^64
@@ -130,12 +155,6 @@ class Trainer:
                  chaos=None, membership=None,
                  retry: Optional[RetryPolicy] = None,
                  check_replicas: bool = False):
-        if chaos is not None or membership is not None:
-            raise queued("chaos and elastic membership",
-                         "topology, chaos and elasticity")
-        if rc.comm.local_steps > 1:
-            raise queued(f"local SGD (local_steps = {rc.comm.local_steps})",
-                         "topology, chaos and elasticity")
         self.rc = rc
         self.mesh = mesh
         # `route` makes the cross-pod path a multi-hop Forwarder chain
@@ -143,11 +162,33 @@ class Trainer:
         # psum reduce intra-site before the slow hop
         self.route = route
         self.site_groups = site_groups
+        # self-healing: a ChaosMonitor gets one hook per executed step
+        # (between steps), from which it watches the route's links and
+        # drives the reroute or the failover
+        self.chaos = chaos
+        # elastic membership: a SiteMembership whose epoch this loop
+        # watches; a bump re-forms the local-SGD subgroup, re-tunes and
+        # resyncs the surviving world (_reconcile_membership).  An attached
+        # monitor drives its probes; without one the loop ticks them
+        self.membership = membership
+        if (chaos is not None and membership is not None
+                and getattr(chaos, "membership", None) is None):
+            chaos.membership = membership
         # fault-recovery budget: bounded checkpoint-restore attempts per
         # incident streak (a successful step resets the schedule)
         self.retry = retry or RetryPolicy(max_attempts=8)
-        self.bundle: StepBundle = build_train_step(rc, mesh, route=route,
-                                                   site_groups=site_groups)
+        # local-SGD cadence (CommConfig.local_steps): K > 1 builds the
+        # site-local step and ships a model delta every K-th step
+        self.localsgd = LocalSGDController(rc.comm.local_steps)
+        self.bundle: StepBundle = build_train_step(
+            rc, mesh, route=route, site_groups=site_groups,
+            local_only=self.localsgd.enabled)
+        self._dsync = None           # the delta sync of this epoch
+        self._dsync_built = False
+        self._anchor = None          # the parameters at the last delta sync
+        self._epoch_seen = membership.epoch if membership is not None else 0
+        self._members_seen = (set(membership.members())
+                              if membership is not None else set())
         self.ckpt_every = ckpt_every
         self.keep = keep
         self.fault_hook = fault_hook
@@ -333,6 +374,9 @@ class Trainer:
         # bounded recovery: restores are paced by the RetryPolicy schedule
         # (modeled backoff; a successful step resets the incident streak)
         retry = RetryState(self.retry)
+        if self.localsgd.enabled and self._anchor is None:
+            # the first K local steps diverge from this snapshot
+            self._anchor = tree_map(lambda x: x.clone(), self.state["params"])
         while self.step < target:
             batch = self._place_batch(next(data_iter))
             ran = self.bundle
@@ -370,6 +414,19 @@ class Trainer:
                 new_cfg = self.tuner.observe(tuner_s)
                 if new_cfg is not None:
                     self._retune(new_cfg, log)
+            if self.chaos is not None:
+                # between steps (the step above has finished), so a route
+                # swap or a failover here leaves no collective half posted
+                self.chaos.on_step(self, log=log)
+            elif self.membership is not None:
+                # no monitor attached: the loop ticks the liveness probes
+                self.membership.on_step(self.step)
+            if self.chaos is not None or self.membership is not None:
+                self._agree()
+            if self.membership is not None:
+                self._reconcile_membership(log)
+            if self.localsgd.enabled and self.localsgd.is_sync_step(self.step):
+                self._delta_sync(log)
             rec = {"step": self.step, "loss": loss,
                    "grad_norm": float(metrics["grad_norm"]),
                    "lr": float(metrics["lr"]), "time_s": dt,
@@ -389,9 +446,13 @@ class Trainer:
                    # the knobs this step ran with; whether it was the first
                    # step of a newly built bundle; the time its tuner saw
                    "config": _knobs(ran.path), "fresh": fresh,
-                   "tuner_s": tuner_s}
+                   "tuner_s": tuner_s,
+                   # the route and the membership after this step's hooks
+                   **self._world_view()}
             if self.check_replicas:
-                rec["checksum"] = self._replicas_agree()
+                rec["checksum"] = (replica_checksum(self.state["params"])
+                                   if self.localsgd.enabled
+                                   else self._replicas_agree())
             self.history.append(rec)
             if log_every and self.step % log_every == 0:
                 log(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
@@ -452,6 +513,117 @@ class Trainer:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
         return float(t)
 
+    # -- local SGD and elastic membership -----------------------------------
+    def _world_view(self) -> dict:
+        """The route's sites, the membership's epoch and members (None
+        where there is none)."""
+        mem = self.membership
+        return {"route": None if self.route is None else list(self.route.sites),
+                "epoch": None if mem is None else mem.epoch,
+                "members": None if mem is None else mem.members()}
+
+    def _agree(self) -> None:
+        """Every rank's step and :meth:`_world_view` after this step's chaos
+        and membership hooks, compared over the world: ranks that decided
+        otherwise would post other collectives from here on."""
+        group = self.mesh.world_group
+        if group is None:
+            return
+        mine = {"step": self.step, **self._world_view()}
+        every = [None] * dist.get_world_size(group)
+        dist.all_gather_object(every, mine, group=group)
+        other = next((e for e in every if e != mine), None)
+        if other is not None:
+            raise MembershipDivergence(
+                f"step {self.step}: rank {dist.get_rank()} holds {mine}, "
+                f"another rank {other}")
+
+    def _member_groups(self) -> Optional[list]:
+        """Pod groups of the current epoch's live sites (all sites when no
+        membership is attached)."""
+        if self.site_groups is None:
+            return None
+        if self.membership is not None:
+            return [list(g) for g in self.membership.member_pod_groups()]
+        return [list(g) for g in self.site_groups]
+
+    def _delta_sync(self, log: Callable[[str], None] = print,
+                    full: bool = False) -> None:
+        """Run one cross-site reconciliation (every K-th step).
+
+        `full=True` averages the raw parameters (the delta against a zero
+        anchor, ``x * 0`` as the reference makes it): the world-resize
+        resync, which also gives every member pod the same anchor again."""
+        if not self._dsync_built:
+            self._dsync_built = True
+            groups = self._member_groups()
+            if groups is not None and len(groups) >= 2:
+                self._dsync = build_delta_sync(
+                    self.rc, self.mesh, self.bundle,
+                    site_groups=self.site_groups,
+                    member_pods=[p for g in groups for p in g],
+                    member_gateways=[g[0] for g in groups])
+        if self._dsync is None:
+            return
+        params = self.state["params"]
+        if full:
+            self._anchor = None      # replaced below: no second copy alive
+        anchor = (tree_map(lambda x: x * 0, params) if full else self._anchor)
+        if anchor is None:
+            return
+        new_p = self._dsync(params, anchor)
+        self.state["params"] = new_p
+        self._anchor = tree_map(lambda x: x.clone(), new_p)
+
+    def _reconcile_membership(self, log: Callable[[str], None] = print) -> None:
+        """React to a membership epoch bump: catch rejoined sites up from a
+        survivor, re-form the delta sync's subgroup, re-tune for the
+        resized world and resync the members (resize, catchup, retune,
+        recover in the incident timeline).  Every rank runs it at the same
+        step, members or not."""
+        mem = self.membership
+        if mem is None or mem.epoch == self._epoch_seen:
+            return
+        prev, self._epoch_seen = self._epoch_seen, mem.epoch
+        members = mem.members()
+        log(f"[elastic] step {self.step}: membership epoch {prev} -> "
+            f"{mem.epoch}; members {members}")
+        mem.log.add(self.step, "resize", ",".join(members),
+                    {"epoch": mem.epoch, "from_epoch": prev,
+                     "members": members})
+        # rejoined sites first: clone a surviving gateway's parameters onto
+        # their pods (the replica catch-up)
+        joined = [s for s in members if s not in self._members_seen]
+        survivors = [s for s in members if s in self._members_seen]
+        if joined and survivors and self.site_groups is not None and self.mesh.pod > 1:
+            topo = mem.topo
+            names = [s.name for s in topo.sites]
+            pg = [list(g) for g in topo.pod_groups()]
+            targets = [p for n, g in zip(names, pg) if n in joined for p in g]
+            cu = build_catchup(self.mesh, self.bundle,
+                               source_pod=topo.site(survivors[0]).gateway,
+                               target_pods=targets)
+            if cu is not None:
+                self.state["params"] = cu(self.state["params"])
+                mem.log.add(self.step, "catchup", ",".join(joined),
+                            {"source": survivors[0], "pods": targets})
+        self._members_seen = set(members)
+        # the old subgroup's sync and cost landscape are gone
+        self._dsync = None
+        self._dsync_built = False
+        if self.tuner is not None:
+            self.tuner.abort_probe()
+            self.tuner.converged = False
+            self.tuner.best_cost = None
+        mem.log.add(self.step, "retune", self.bundle.path.key,
+                    {"epoch": mem.epoch})
+        if self.localsgd.enabled:
+            # full resync: every member pod leaves with the same parameters
+            # and the same anchor, which the incremental merge needs
+            self._delta_sync(log, full=True)
+        mem.log.add(self.step, "recover", ",".join(members),
+                    {"epoch": mem.epoch})
+
     # -- online autotuning ----------------------------------------------------
     @staticmethod
     def _cfg_key(cfg: dict) -> tuple:
@@ -469,11 +641,14 @@ class Trainer:
         self.rc = dataclasses.replace(self.rc, comm=comm)
         key = self._cfg_key(cfg)
         if key not in self._bundles:
-            self._bundles[key] = build_train_step(self.rc, self.mesh,
-                                                  route=self.route,
-                                                  site_groups=self.site_groups)
+            self._bundles[key] = build_train_step(
+                self.rc, self.mesh, route=self.route,
+                site_groups=self.site_groups, local_only=self.localsgd.enabled)
             self._fresh = True
         self.bundle = self._bundles[key]
+        # the delta sync inherits the path's knobs: rebuilt at the next sync
+        self._dsync = None
+        self._dsync_built = False
         if self.bundle.replan is not None:
             # a cached bundle noted its plan when it was built: re-note it,
             # or the telemetry would describe the last-built config
@@ -493,8 +668,11 @@ class Trainer:
         self.route = new_route
         self._bundles.clear()        # keyed by knobs, not route: invalidate
         self.bundle = build_train_step(self.rc, self.mesh, route=new_route,
-                                       site_groups=self.site_groups)
+                                       site_groups=self.site_groups,
+                                       local_only=self.localsgd.enabled)
         self._fresh = True
+        self._dsync = None
+        self._dsync_built = False
         if self.tuner is not None:
             self.tuner.abort_probe()
             self.tuner.converged = False
@@ -503,9 +681,26 @@ class Trainer:
             + " -> ".join(str(s) for s in getattr(new_route, 'sites', ())))
 
     def failover_to_replica(self, log: Callable[[str], None] = print) -> str:
-        """Whole-site loss, driven by the chaos monitor: queued with it."""
-        raise queued("failover_to_replica (whole-site loss)",
-                     "topology, chaos and elasticity")
+        """Whole-site loss: the remote site is unreachable on any route.
+        Drop the cross-site route (train on without it) and restore from
+        the newest restorable checkpoint: the replica mirror when the
+        primary directory died with the site.  Rank 0 decides whether there
+        is one and which step (its manager wrote them), every rank restores
+        that step (:meth:`_restore`); "degraded" when there is none.  Runs
+        between steps on every rank at once, as the monitor decides it."""
+        self.route = None
+        self._bundles.clear()
+        self.bundle = build_train_step(self.rc, self.mesh, route=None,
+                                       site_groups=self.site_groups,
+                                       local_only=self.localsgd.enabled)
+        self._fresh = True
+        self._dsync = None
+        self._dsync_built = False
+        outcome = "degraded"
+        if self.manager is not None and self._restore():
+            outcome = "restored"
+        log(f"[chaos] step {self.step}: site lost; failover ({outcome})")
+        return outcome
 
     def _recover(self) -> None:
         if not self.manager or not self._restore():
@@ -524,9 +719,19 @@ _RECOVERABLE = (InjectedFault,)
 
 
 def elastic_restart(rc: RunConfig, old_trainer: Trainer, new_mesh, **kw) -> Trainer:
-    """Restart on a resized mesh: queued with elastic membership."""
-    raise queued("elastic_restart (a resized mesh)",
-                 "topology, chaos and elasticity")
+    """Restart training on another mesh (node loss, scale-down): a new
+    Trainer restores the old trainer's checkpoints in the new layout (the
+    store reshards: each rank takes its shard of every leaf).  `new_mesh`
+    spans the same processes as the old one (say 2 pods x 2 data ranks
+    re-formed as 1 pod x 4), its groups created on every rank in one fixed
+    order (``launch/mesh.py``); a shrink to fewer processes would start the
+    process group again, which this port does not do."""
+    old_trainer.close()
+    t = Trainer(rc, new_mesh,
+                ckpt_dir=old_trainer.manager.dir if old_trainer.manager else None,
+                **kw)
+    t.init_or_restore()
+    return t
 
 
 def _knobs(path) -> dict:

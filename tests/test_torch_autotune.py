@@ -22,7 +22,8 @@ Trainer's and the launcher's other keywords and flags of the reference.
   one pod each (every pod a gateway) give the plain sync's bits.
 * **§C 8**: ``Trainer(replica_dir=, ckpt_every=, keep=, site_groups=,
   retry=)`` (``replica_dir`` and ``retry`` ported since) and
-  ``launch/train.py --ckpt-every / --lease-steps``: each works or raises ``NotImplementedError`` naming its ROADMAP item.
+  ``launch/train.py --ckpt-every / --lease-steps``: each works (``--coordinator``
+  without ``--route`` stops as the reference's does).
 """
 from __future__ import annotations
 
@@ -394,6 +395,7 @@ def test_launcher_takes_lease_steps_and_queues_coordinator(capsys):
     main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--steps", "1",
           "--seq-len", "16", "--global-batch", "2", "--lease-steps", "3"])
     assert "[train] done: loss" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="topology, chaos and elasticity"):
+    # --coordinator is ported; without --route it stops as the reference's does
+    with pytest.raises(SystemExit, match="--coordinator needs --route"):
         main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
               "--lease-steps", "3", "--coordinator", "amsterdam"])

@@ -15,9 +15,8 @@ In process (no collective): path ids and telemetry keys, ``Route``,
 the online and per-hop tuners), ``Serve``/``Admit``/``ServeStats``,
 ``Report``/``PathStats`` keys and ``Incidents``: identical to the
 reference's (path ids normalized, as each package counts its own).
-``Membership`` and ``setLocalSteps`` raise naming ROADMAP.md queue A's
-'topology, chaos and elasticity'.  Every spawned run gives gloo a 120 s
-timeout and is joined with a deadline.
+``Membership`` and ``setLocalSteps`` do what the reference's do.  Every
+spawned run gives gloo a 120 s timeout and is joined with a deadline.
 """
 from __future__ import annotations
 
@@ -310,15 +309,23 @@ def test_host_verbs_identical_to_reference():
 
 @pytest.mark.parametrize("verb", ["Membership", "setLocalSteps"])
 def test_unported_verbs_name_their_item(verb):
-    from repro_torch.core.api import MPW
-    from repro_torch.core.topology import cosmogrid_topology
-    mpw = MPW.Init()
-    pid = mpw.CreatePath()
-    with pytest.raises(NotImplementedError, match="topology, chaos and elasticity"):
+    """Both verbs are ported: each does what the reference's does."""
+    out = []
+    for root in ("repro", "repro_torch"):
+        MPW = importlib.import_module(f"{root}.core.api").MPW
+        topo = importlib.import_module(f"{root}.core.topology")
+        mpw = MPW.Init()
+        pid = mpw.CreatePath()
         if verb == "Membership":
-            mpw.Membership(cosmogrid_topology(), "amsterdam")
+            mem = mpw.Membership(topo.cosmogrid_topology(), "amsterdam", lease_steps=2)
+            out.append([mpw.membership is mem, mem.lease_steps, mem.epoch, mem.members()])
         else:
             mpw.setLocalSteps(pid, 4)
+            with pytest.raises(ValueError) as e:
+                mpw.setLocalSteps(pid, 0)
+            out.append([mpw.path(pid).comm.local_steps, str(e.value)])
+        mpw.Finalize()
+    assert out[0] == out[1]
 
 
 def test_one_pod_messages_return_the_tree():

@@ -192,17 +192,17 @@ def test_train_launcher_runs_two_pods_on_the_cpu(tmp_path):
 
 def test_train_launcher_refuses_unported_flags():
     from repro_torch.launch.train import main
+    base = ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu"]
     with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
-              "--chaos-drop", "4"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
-              "--local-steps", "4"])
-    # --ckpt-every and --lease-steps are accepted, as in the JAX launcher
-    # (tests/test_torch_autotune.py); the flag --lease-steps serves is not
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
-              "--lease-steps", "4", "--coordinator", "amsterdam"])
+        main(base + ["--production-mesh"])
+    # the chaos, local-SGD and membership flags are ported
+    # (tests/test_torch_elastic.py); the launcher refuses their misuse
+    with pytest.raises(SystemExit, match="--local-steps must be >= 1"):
+        main(base + ["--local-steps", "0"])
+    with pytest.raises(SystemExit, match="--coordinator needs --route"):
+        main(base + ["--lease-steps", "4", "--coordinator", "amsterdam"])
+    with pytest.raises(SystemExit, match="--chaos-drop needs a direct"):
+        main(base + ["--pods", "4", "--route", "tokyo:espoo", "--chaos-drop", "4"])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
