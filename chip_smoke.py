@@ -42,7 +42,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             bytes equal to the plan, and the kernels launched in each run
             (counts reset in each rank just before it trains); step ms,
             tokens/s per pod, sync ms, wire bytes and peak memory per rank,
-            and one profiled int8 step;
+            and one profiled int8 step.  The three codecs run one after the
+            other in one spawn of the ranks (``launch.train.main_runs``), as
+            do the codecs or algorithms of the zero, buckets and ring phases;
 8. zero     the same launcher on 2 pods x 2 data ranks, four processes on
             the card, ZeRO-3 (parameters and moments scattered over each
             pod's data ranks, weights gathered at use, gradients
@@ -104,7 +106,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             SendRecv and ISendRecv/Wait over one link, DSendRecv, Barrier,
             the int8 AllReduce against the plain sum; FileCopy of the ckpt phase's checkpoint along the route,
             failing its CRC first, then resumed; each verb's GB/s;
-16. chaos   the Trainer on the 4 CosmoGrid pods with the backup link, the
+16. chaos   (``CUT_SPEC``, as elastic) the Trainer on the 4 CosmoGrid pods
+            with the backup link, the
             amsterdam -> tokyo route, no codec: a control run and a run with
             the light path dropped at step 4 under a ``ChaosMonitor``, 8
             steps each: the timeline inject 4, detect 5, replan 5, retune 5,
@@ -127,7 +130,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             CosmoGrid route with its backup link, the light path dropped over
             the middle requests' ships: the mono tokens bit for bit, reships
             and a reroute, every ship's per-hop wire bytes its hops' plan;
-            then with no detour the engine degrades and completes them all.
+            then with no detour the engine degrades and completes them all;
+19. families (run after the profile phase) mamba2-780m and zamba2-1.2b at
+            published width and depth (seed-0 weights): the prefill bundle on
+            8 prompts of 2048 tokens, its state landed in a 4096-token cache,
+            ``Server.generate`` of 64 greedy tokens, twice (the same tokens),
+            rmsnorm launched (and flash for zamba2's shared attention); every
+            mamba block and shared block of the model, given its prefill
+            input, decoded token by token against its prefill (64 tokens,
+            5e-2), and the smoke configs' units card against CPU; then
+            phi3.5-moe-42b-a6.6b at published width, 8 of its 32 layers,
+            through the ServingEngine mono, disagg and disagg-int8 (8
+            requests, the engine phase's checks, all four kernels), and its
+            smoke MoE layer
+            card against CPU with tied router logits and with drops at
+            capacity.  Tokens/s, prefill ms, decode ms per token, peak memory
+            and launches per arch.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -152,7 +170,7 @@ PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
 PHASES = ("env", "build", "kernels", "small", "engine", "serve_chaos", "profile",
-          "train", "zero", "buckets", "ring", "sites", "autotune", "route", "ckpt",
+          "families", "train", "zero", "buckets", "ring", "sites", "autotune", "route", "ckpt",
           "facade", "chaos", "elastic")
 CODECS = ("none", "bf16", "int8")
 
@@ -232,10 +250,13 @@ def phase_kernels(torch, dev) -> dict:
     rows["launch_floor_ms"] = floor_ms
 
     # rmsnorm: every block's two norms and the final one; rows = prompt tokens
-    # in prefill, slots in decode (llama3.2-3b, d 3072), tokens of a training
-    # step (qwen1.5-0.5b, d 1024).  Tolerance: one bf16 ulp.
+    # in prefill, slots in decode (llama3.2-3b, d 3072; phi3.5-moe, d 4096),
+    # tokens of a training step (qwen1.5-0.5b, d 1024), of a B8 S2048 prefill
+    # (mamba2-780m, d 1536; zamba2-1.2b, d 2048).  Tolerance: one bf16 ulp.
     for R, d, on in ((1024, 3072, "serving"), (8, 3072, "serving"),
-                     (4096, 1024, "train")):
+                     (4096, 1024, "train"), (16384, 1536, "families"),
+                     (16384, 2048, "families"), (1024, 4096, "families"),
+                     (8, 4096, "families")):
         nbytes = 2 * R * d * 2 + d * 2
         k = sets_for(nbytes)
         xs = [rnd(R, d) for _ in range(k)]
@@ -365,9 +386,10 @@ def phase_kernels(torch, dev) -> dict:
 
     # flash attention: prefill at full width (24 q heads over 8 kv heads,
     # head dim 128) at the engine's prompt lengths 1024, 512 and 128, a
-    # ragged length, a query suffix, head dim 64 with a window, and
+    # ragged length, a query suffix, head dim 64 with a window,
     # h2o-danube-3-4b's full width (32 q heads over 8, head dim 120), with
-    # and without a window.
+    # and without a window, qwen1.5-0.5b's training step, zamba2-1.2b's
+    # prefill and phi3.5-moe's longest engine prompt (32 over 8, head dim 128).
     # Tolerance: 2e-2 (bf16 output, P rounded to bf16, sums in another order).
     from torch.nn.attention.bias import causal_lower_right
 
@@ -387,12 +409,18 @@ def phase_kernels(torch, dev) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             **mask).transpose(1, 2)
 
-    cases = [(1, 1024, 1024, 24, 8, 128, None), (1, 777, 777, 24, 8, 128, None),
-             (1, 128, 1024, 24, 8, 128, None), (2, 512, 512, 8, 2, 64, 256),
-             (1, 512, 512, 24, 8, 128, None), (1, 128, 128, 24, 8, 128, None),
-             (1, 1024, 1024, 32, 8, 120, None), (1, 1024, 1024, 32, 8, 120, 256),
-             (1, 4096, 4096, 16, 16, 64, None)]    # qwen1.5-0.5b's training step
-    for B, Sq, Sk, H, KH, D, window in cases:
+    cases = [(1, 1024, 1024, 24, 8, 128, None, "serving"),
+             (1, 777, 777, 24, 8, 128, None, "serving"),
+             (1, 128, 1024, 24, 8, 128, None, "serving"),
+             (2, 512, 512, 8, 2, 64, 256, "serving"),
+             (1, 512, 512, 24, 8, 128, None, "serving"),
+             (1, 128, 128, 24, 8, 128, None, "serving"),
+             (1, 1024, 1024, 32, 8, 120, None, "serving"),
+             (1, 1024, 1024, 32, 8, 120, 256, "serving"),
+             (1, 4096, 4096, 16, 16, 64, None, "train"),
+             (8, 2048, 2048, 32, 32, 64, None, "families"),
+             (1, 1024, 1024, 32, 8, 128, None, "families")]
+    for B, Sq, Sk, H, KH, D, window, on in cases:
         pairs = causal_pairs(torch, dev, Sq, Sk, window)
         nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KH * D)
         k = sets_for(nbytes)
@@ -404,7 +432,7 @@ def phase_kernels(torch, dev) -> dict:
         err = float(diff.max())
         check(bool((diff <= 2e-2 + 2e-2 * want.float().abs()).all()),
               f"flash {(B, Sq, Sk, H, KH, D, window)} max err {err}")
-        e = {"on_path": "train" if Sq == 4096 else "serving",
+        e = {"on_path": on,
              "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KH": KH, "D": D,
                        "causal": True, "window": window},
              "max_abs_err": err,
@@ -734,7 +762,12 @@ def full_width(torch, dev):
     return cfg, params, time.perf_counter() - t0
 
 
-def phase_engine(torch, dev, cfg, params) -> tuple:
+def phase_engine(torch, dev, cfg, params, n_requests: int = 16,
+                 phase: str = "engine") -> tuple:
+    """`cfg` with `params` serving `n_requests` seeded requests (prompts
+    128-1024, 16-64 new tokens) on 8 slots of a 2048-token cache through the
+    ServingEngine, mono, disagg with no codec and disagg-int8; each run's
+    checks, and mono against disagg with no codec bit for bit."""
     import numpy as np
     from repro_torch.configs import CommConfig, RunConfig, ShapeConfig, TrainConfig
     from repro_torch.core.kvship import kv_cache_bytes, plan_kv_ship
@@ -747,7 +780,7 @@ def phase_engine(torch, dev, cfg, params) -> tuple:
                    comm=CommConfig(), train=TrainConfig())
     rng = np.random.default_rng(0)
     reqs = []
-    for _ in range(16):
+    for _ in range(n_requests):
         plen = int(rng.integers(128, 1025))
         mnew = int(rng.integers(16, 65))
         reqs.append((rng.integers(1, cfg.vocab_size, size=plen), mnew))
@@ -811,12 +844,13 @@ def phase_engine(torch, dev, cfg, params) -> tuple:
                 "wire_bytes_equal_plan": wire_ok,
                 "modeled_ttft_p50_s": stats["ttft_p50_s"],
                 "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
-        emit({"phase": "engine", "run": label, **runs[label]["summary"]})
+        emit({"phase": phase, "arch": cfg.name, "run": label, **runs[label]["summary"]})
         del eng
         torch.cuda.empty_cache()
-    mono, dis, q8 = (runs[k]["results"] for k in ("mono", "disagg", "disagg_int8"))
+    mono, q8 = runs["mono"]["results"], runs["disagg_int8"]["results"]
     for rid in mono:
-        check(np.array_equal(mono[rid], dis[rid]), f"req{rid}: mono and disagg tokens bit-identical")
+        check(np.array_equal(mono[rid], runs["disagg"]["results"][rid]),
+              f"req{rid}: mono and disagg tokens bit-identical")
     l8 = runs["disagg_int8"]["launches"]
     check(all(l8[k] > 0 for k in SERVING_KERNELS),
           f"int8 run launched every serving kernel: {l8}")
@@ -828,7 +862,8 @@ def phase_engine(torch, dev, cfg, params) -> tuple:
             "requests": len(reqs),
             "mono_disagg_bit_identical": True,
             "int8_token_agreement_with_mono": agree,
-            "launches": runs["disagg_int8"]["launches"]}, ctx
+            "launches": runs["disagg_int8"]["launches"],
+            "summaries": {k: r["summary"] for k, r in runs.items()}}, ctx
 
 
 # ---------------------------------------------------------------------------
@@ -988,10 +1023,24 @@ def ring_calls(sizes: list, world: int, algo: str) -> tuple[int, dict]:
     return dirs, calls
 
 
-def _train_run(codec: str, argv: list, out_dir: str, label: str,
-               comm=None) -> dict:
-    """One ``launch.train.main`` run (`comm`: the launcher's CommConfig
-    keyword): check every rank's report and return the run's numbers.
+def _train_runs(runs: list, out_dir: str) -> tuple[list, float]:
+    """``launch.train.main_runs`` of `runs`, each ``(codec, argv, label,
+    comm)`` (`comm`: the launcher's CommConfig keyword), in one spawn of the
+    ranks; each run's reports checked by :func:`_check_run`.  Returns the
+    runs' numbers and the spawn's wall seconds."""
+    from repro_torch.launch import train as launcher
+    reps = [os.path.join(out_dir, f"{label}_{codec}") for codec, _, label, _ in runs]
+    t0 = time.perf_counter()
+    launcher.main_runs([(argv + ["--compress", codec, "--report", rep], comm)
+                        for (codec, argv, _, comm), rep in zip(runs, reps)])
+    wall = time.perf_counter() - t0
+    return [_check_run(codec, rep, label)
+            for (codec, _, label, _), rep in zip(runs, reps)], wall
+
+
+def _check_run(codec: str, rep: str, label: str) -> dict:
+    """Check one launcher run's reports (rank r's at ``{rep}.rank{r}.json``)
+    and return the run's numbers.
     Checks: each rank noted the plan (and each bucket's); the flash forward
     and backward and rmsnorm launched on every rank; with int8, quant and
     dequant once per chunk per step on the gather path, and on a ring P and
@@ -1002,11 +1051,6 @@ def _train_run(codec: str, argv: list, out_dir: str, label: str,
     every rank's without ZeRO, under ZeRO the pods' shards of each data
     index (and the data indices' shards differ)."""
     import numpy as np
-    from repro_torch.launch import train as launcher
-    rep = os.path.join(out_dir, f"{label}_{codec}")
-    t0 = time.perf_counter()
-    launcher.main(argv + ["--compress", codec, "--report", rep], comm=comm)
-    wall = time.perf_counter() - t0
     n = json.load(open(f"{rep}.rank0.json"))["ranks"]
     reps = [json.load(open(f"{rep}.rank{r}.json")) for r in range(n)]
     r0 = reps[0]
@@ -1076,7 +1120,7 @@ def _train_run(codec: str, argv: list, out_dir: str, label: str,
         "bucket_mb": r0["bucket_mb"], "bucket_mode": r0["history"][0]["bucket_mode"],
         "n_buckets": len(bplans),
         "checksums_by_rank": [[x["checksum"] for x in rp["history"]] for rp in reps],
-        "wall_s_with_spawn": wall, "losses": [x["loss"] for x in r0["history"]],
+        "run_s": r0["run_s"], "losses": [x["loss"] for x in r0["history"]],
         "grad_norms": [x["grad_norm"] for x in r0["history"]],
         "step_ms_median_steps_2_3": 1e3 * step_s,
         "tokens_per_s_per_pod": tokens / step_s,
@@ -1127,41 +1171,49 @@ def phase_train(torch, out_dir: str) -> dict:
     spawned processes), full-width qwen1.5-0.5b at 4096 tokens a pod, 3 steps
     with each wire codec; the int8 run takes a fourth step, which rank 0 runs
     under torch.profiler.  Each rank resets the kernel counts just before it
-    trains and reports them after (:func:`_train_run` checks every run)."""
-    runs = {}
+    trains and reports them after (:func:`_check_run` checks every run)."""
+    specs = []
     for codec in CODECS:
         argv = list(TRAIN_ARGS)
         if codec == "int8":
             argv += ["--steps", str(PROFILE_STEP + 1), "--profile-step", str(PROFILE_STEP)]
-        runs[codec] = _train_run(codec, argv, out_dir, "train")
+        specs.append((codec, argv, "train", None))
+    done, spawn_s = _train_runs(specs, out_dir)
+    runs = dict(zip(CODECS, done))
+    for codec in CODECS:
         emit({"phase": "train", "mesh": "2x1", "codec": codec, **runs[codec]})
+    emit({"phase": "train_spawn", "runs": list(CODECS), "spawn_s": spawn_s})
     return runs
 
 
 def phase_zero(torch, out_dir: str) -> dict:
     """The same launcher on 2 pods x 2 data ranks (four spawned processes on
     the one card), ZeRO-3, one 4096-token sequence a rank, 3 steps with no
-    codec and with int8 (:func:`_train_run` checks every run)."""
-    runs = {}
+    codec and with int8 (:func:`_check_run` checks every run)."""
+    done, spawn_s = _train_runs([(c, ZERO_ARGS, "zero", None) for c in ZERO_CODECS],
+                                out_dir)
+    runs = dict(zip(ZERO_CODECS, done))
     for codec in ZERO_CODECS:
-        runs[codec] = _train_run(codec, ZERO_ARGS, out_dir, "zero")
         emit({"phase": "zero", "mesh": "2x2", "codec": codec, **runs[codec]})
+    emit({"phase": "zero_spawn", "runs": list(ZERO_CODECS), "spawn_s": spawn_s})
     return runs
 
 
 def phase_buckets(torch, out_dir: str, zero: dict) -> dict:
     """The zero phase's launcher and mesh with ``bucket_mb = 64``: no codec
-    runs the backward flush, int8 the tail mode (:func:`_train_run` checks
+    runs the backward flush, int8 the tail mode (:func:`_check_run` checks
     every run, each bucket against its plan).  Held to the zero phase's runs
     (`zero`): the flush run's step-1 loss bit-identical, steps 2-3 within
     FLUSH_LOSS_TOL (the hook rounds each synced block gradient to bf16 once
     more, as the reference's does); the tail run's parameter checksums equal
     at every step on every rank."""
     from repro_torch.configs import CommConfig
+    done, spawn_s = _train_runs(
+        [(c, ZERO_ARGS, "buckets",
+          CommConfig(mode="hierarchical", compress=c, bucket_mb=BUCKET_MB))
+         for c in ZERO_CODECS], out_dir)
     runs = {}
-    for codec in ZERO_CODECS:
-        comm = CommConfig(mode="hierarchical", compress=codec, bucket_mb=BUCKET_MB)
-        r = _train_run(codec, ZERO_ARGS, out_dir, "buckets", comm=comm)
+    for codec, r in zip(ZERO_CODECS, done):
         z = zero[codec]
         mode = "flush" if codec == "none" else "tail"
         check(r["bucket_mode"] == mode and r["n_buckets"] >= 3,
@@ -1182,23 +1234,26 @@ def phase_buckets(torch, out_dir: str, zero: dict) -> dict:
         runs[codec] = r
         emit({"phase": "buckets", "mesh": "2x2", "codec": codec, "mode": mode,
               **{k: v for k, v in r.items() if k != "chunk_sizes_step1"}})
+    emit({"phase": "buckets_spawn", "runs": list(ZERO_CODECS), "spawn_s": spawn_s})
     return runs
 
 
 def phase_ring(torch, out_dir: str) -> dict:
     """The launcher on 3 pods x 1 data rank (three processes on the card),
     ring with int8, ring2 with int8 and ring with no codec, 3 steps each
-    (:func:`_train_run` checks every run: replicas bit-identical, wire bytes
+    (:func:`_check_run` checks every run: replicas bit-identical, wire bytes
     the plan's, quant and dequant P and 2P-1 times per chunk per direction).
     Reports the bytes each rank sent against the psum path's modeled
     per-pod wire (gather-based with a codec: (P-1) times the codec's bytes)
     and the int8 wire blocks."""
     from repro_torch.configs import CommConfig
     from repro_torch.core.ring import wire_bytes_per_pod
+    done, spawn_s = _train_runs(
+        [(codec, RING_ARGS, f"ring_{algo}",
+          CommConfig(mode="hierarchical", compress=codec, algo=algo))
+         for algo, codec in RING_RUNS], out_dir)
     runs = {}
-    for algo, codec in RING_RUNS:
-        comm = CommConfig(mode="hierarchical", compress=codec, algo=algo)
-        r = _train_run(codec, RING_ARGS, out_dir, f"ring_{algo}", comm=comm)
+    for (algo, codec), r in zip(RING_RUNS, done):
         pods = r["pods"]
         r["psum_path_wire_bytes_per_step"] = round(wire_bytes_per_pod(
             r["payload_bytes"], pods, algo="psum", compress=codec))
@@ -1215,6 +1270,8 @@ def phase_ring(torch, out_dir: str) -> dict:
         runs[f"{algo}_{codec}"] = r
         emit({"phase": "ring", "mesh": "3x1", "algo": algo, "codec": codec,
               **{k: v for k, v in r.items() if k != "chunk_sizes_step1"}})
+    emit({"phase": "ring_spawn", "runs": [f"{a}_{c}" for a, c in RING_RUNS],
+          "spawn_s": spawn_s})
     return runs
 
 
@@ -1265,10 +1322,10 @@ def phase_kernels_ring(torch, dev, shape: dict) -> dict:
 # full-width qwen1.5-0.5b, 4096 tokens a pod (one sequence)
 TRAINER_SPEC = {"arch": "qwen1.5-0.5b", "smoke": False, "seq_len": 4096,
                 "device": "cuda", "gloo_timeout_s": 900}
-# the sites, ckpt and facade phases at 2 of the 24 layers (published
-# widths; 181,283,840 parameters, 39 % of the bytes: the embedding stays
-# whole), so that the whole script fits its time with the chaos and
-# elasticity phases.  The route and autotune phases keep their depth: their
+# the sites, ckpt, facade, chaos and elastic phases at 2 of the 24 layers
+# (published widths; 181,283,840 parameters, 39 % of the bytes: the
+# embedding stays whole), so that the whole script fits its time with the
+# families phase.  The route and autotune phases keep their depth: their
 # int8 syncs are the embedding's padded chunks (ROADMAP §C 4) at any depth
 CUT_SPEC = dict(TRAINER_SPEC, layers=2)
 SITE_STEPS = 3
@@ -3040,6 +3097,388 @@ def phase_serve_chaos(torch, dev, cfg, params, ctx: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the ssm, hybrid and moe families served at full width
+# ---------------------------------------------------------------------------
+
+STATE_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+FAMILY_BATCH = 8
+FAMILY_CACHE = 4096
+FAMILY_PROMPT = 2048
+FAMILY_NEW = 64
+PARITY_ROWS, PARITY_PROMPT = 2, 64   # prefill against token-by-token decode
+# one unit (a mamba block, or the shared block at a site) on the same input:
+# the dense model's bounds (tests/test_torch_model.py), bf16 and f32
+UNIT_TOL = 5e-2
+F32_TOL = 5e-3
+# the whole model at full depth in f32, decode against prefill: relative L2
+# of the last position's logits.  A wrong layer's state or site's K/V moves
+# them by O(1); rounding moved them by at most 7.2e-4, and one f32 ulp of
+# noise in the embeddings by 1.2e-4-5.2e-4 (H100 80GB HBM3, 700 W; PERF.md
+# section 6)
+WHOLE_F32_TOL = 1e-2
+SMOKE_PROMPT, SMOKE_NEW = 40, 8
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 8               # of 32: 21.3 GB of bf16 weights; all 32 are ~83 GB
+MOE_REQUESTS = 8
+MOE_LAYER_TOL = 5e-3         # the MoE layer in f32, card against CPU
+
+
+def _ratio(got, want, tol: float) -> float:
+    """max |got - want| / (tol + tol |want|) over the elements (want moved
+    to got's device): at most 1 within `tol`, absolute and relative."""
+    g, w = got.float(), want.float().to(got.device)
+    return float(((g - w).abs() / (tol + tol * w.abs())).max())
+
+
+def _units(model) -> list:
+    """The units of a state-space model's forward, in order: ("mamba", i)
+    for each layer and, in a hybrid, ("shared", site) after each site."""
+    out, site = [], 0
+    for i in range(model.cfg.num_layers):
+        out.append(("mamba", i))
+        if hasattr(model, "_is_site") and model._is_site(i):
+            out.append(("shared", site))
+            site += 1
+    return out
+
+
+def _mamba_unit(torch, cfg, lp: dict, x):
+    """One mamba block on x (B, S, d): (its prefill output, its decode of the
+    same input token by token from an empty state, (prefill's final state,
+    decode's))."""
+    from repro_torch.models import mamba2 as M
+    B, S, _ = x.shape
+    y, pre = M.mamba_forward(lp, x, cfg, with_state=True)
+    st = {n: torch.zeros(pd.shape[1:], dtype=torch.float32, device=x.device)
+          for n, pd in M.mamba_state_defs(cfg, 1, B).items()}
+    ys = []
+    for t in range(S):
+        o, st = M.mamba_decode(lp, st, x[:, t:t + 1], cfg)
+        ys.append(o)
+    return y, torch.cat(ys, 1), (pre, st)
+
+
+def _shared_unit(torch, model, sp: dict, x):
+    """A hybrid's shared block on x (B, S, d): (its prefill output, the
+    flash kernel's on the card; its decode token by token into an empty K/V
+    cache)."""
+    cfg = model.cfg
+    B, S, _ = x.shape
+    y = model._shared_apply(sp, x, torch.arange(S, device=x.device))
+    k = torch.zeros((B, S, cfg.num_kv_heads, cfg.resolved_head_dim),
+                    dtype=x.dtype, device=x.device)
+    v = torch.zeros_like(k)
+    ys = [model._shared_decode(sp, x[:, t:t + 1], k, v, t) for t in range(S)]
+    return y, torch.cat(ys, 1)
+
+
+def unit_parity(torch, model, params, tokens, cpu=None) -> dict:
+    """Every unit of a state-space model (a mamba block, or the shared
+    block at a site) on its prefill input (the previous units' prefill
+    outputs on `params`' device, bf16), its token-by-token decode against
+    its prefill: a mamba block in f32 (its layer's parameters and input
+    cast) within F32_TOL, outputs and final state (the state relative to its
+    largest entry), as the reference holds its own prefill to decode in f32;
+    the shared block in bf16 (the flash kernel takes bf16) within UNIT_TOL.
+    With `cpu` (the parameters on the CPU) each unit's bf16 prefill and
+    decode there against this device's, within UNIT_TOL.  Returns the
+    largest :func:`_ratio` of each comparison; fails above 1.
+
+    Unit by unit because the tolerances are the tests' per-unit ones; the
+    whole model is held in f32 by :func:`whole_model_f32`.  In bf16 a mamba
+    block's prefill (a bf16 conv) and decode (an f32 window) round at other
+    places: up to ~0.07 on outputs of ~1 at smoke size, on the CPU."""
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models.transformer import layer_params
+    cfg = model.cfg
+    x = params["embed"][tokens]
+    worst = {"mamba_decode_vs_prefill_f32": 0.0, "state_ssm_f32": 0.0,
+             "state_conv_f32": 0.0}
+    if hasattr(model, "_is_site"):
+        worst["shared_decode_vs_prefill"] = 0.0
+    if cpu is not None:
+        worst.update(cpu_prefill=0.0, cpu_decode=0.0)
+
+    def note(key, got, want, tol):
+        worst[key] = max(worst[key], _ratio(got, want, tol))
+
+    for kind, i in _units(model):
+        if kind == "mamba":
+            lp = layer_params(params["blocks"], i)
+            y32, yd32, (pre, dec) = _mamba_unit(
+                torch, cfg, {k: v.float() for k, v in lp.items()}, x.float())
+            note("mamba_decode_vs_prefill_f32", yd32, y32, F32_TOL)
+            for n in ("ssm", "conv"):
+                scale = float(pre[n].float().abs().max()) or 1.0
+                note(f"state_{n}_f32", dec[n].float() / scale,
+                     pre[n].float() / scale, F32_TOL)
+            if cpu is None:
+                y = M.mamba_forward(lp, x, cfg)
+            else:
+                y, yd, _ = _mamba_unit(torch, cfg, lp, x)
+                yc, ydc, _ = _mamba_unit(torch, cfg, layer_params(cpu["blocks"], i),
+                                         x.cpu())
+        else:
+            y, yd = _shared_unit(torch, model, params["shared"], x)
+            note("shared_decode_vs_prefill", yd, y, UNIT_TOL)
+            if cpu is not None:
+                yc, ydc = _shared_unit(torch, model, cpu["shared"], x.cpu())
+        if cpu is not None:
+            note("cpu_prefill", y, yc, UNIT_TOL)
+            note("cpu_decode", yd, ydc, UNIT_TOL)
+        x = y
+    for k, r in worst.items():
+        check(r <= 1.0, f"{cfg.name}: {k} within its tolerance (ratio {r})")
+    return worst
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def whole_model_f32(torch, model, params, tokens) -> dict:
+    """The whole model at full depth in f32 (`params` cast): its
+    token-by-token ``decode_step`` on the card from an empty cache against
+    its prefill on the CPU (plain kernels; the flash kernel takes bf16
+    only) and, for an attention-free model, against its prefill on the
+    card: the last position's logits within WHOLE_F32_TOL relative L2.
+    Beside them, how far one f32 ulp of noise in the embeddings moves the
+    CPU prefill's logits: the model's own amplification of a rounding,
+    which sets the tolerance's scale."""
+    def cast(tree, dev):
+        if isinstance(tree, dict):
+            return {k: cast(v, dev) for k, v in tree.items()}
+        return tree.to(device=dev, dtype=torch.float32)
+    from repro_torch.models.param import tree_init
+    dev = tokens.device
+    B, S = tokens.shape
+    p32 = cast(params, dev)
+    cache = cast(tree_init(model.cache_defs(B, S), 0, device=dev), dev)
+    for t in range(S):
+        ld, cache = model.decode_step(p32, cache, t, tokens[:, t:t + 1])
+    del cache
+    pc = cast(p32, "cpu")
+    lc, _ = model.prefill(pc, {"tokens": tokens.cpu()})
+    noise = torch.randn(pc["embed"].shape, generator=torch.Generator().manual_seed(3))
+    ln, _ = model.prefill({**pc, "embed": pc["embed"] * (1 + 2.0 ** -24 * noise.sign())},
+                          {"tokens": tokens.cpu()})
+    out = {"decode_card_vs_prefill_cpu": _rel_l2(ld[:, -1], lc[:, -1]),
+           "one_ulp_embedding_noise_cpu": _rel_l2(ln[:, -1], lc[:, -1])}
+    if model.cfg.family == "ssm":
+        lg, _ = model.prefill(p32, {"tokens": tokens})
+        out["decode_vs_prefill_card"] = _rel_l2(ld[:, -1], lg[:, -1])
+        out["prefill_card_vs_cpu"] = _rel_l2(lg[:, -1], lc[:, -1])
+    del p32, pc
+    for k in ("decode_card_vs_prefill_cpu", "decode_vs_prefill_card", "prefill_card_vs_cpu"):
+        if k in out:
+            check(out[k] <= WHOLE_F32_TOL,
+                  f"{model.cfg.name}: whole model in f32, {k} {out[k]} <= {WHOLE_F32_TOL}")
+    return out
+
+
+def _greedy(torch, model, params, tokens, n: int):
+    """Prefill, land into a cache of the prompt plus `n`, then `n` greedy
+    decode steps: (prefill logits, the (B, n) tokens)."""
+    from repro_torch.models.param import tree_init
+    from repro_torch.runtime import land_prefill
+    S = tokens.shape[1]
+    logits, st = model.prefill(params, {"tokens": tokens})
+    cache = land_prefill(tree_init(model.cache_defs(tokens.shape[0], S + n), 0,
+                                   device=tokens.device), st)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = []
+    for i in range(n):
+        out.append(tok)
+        dl, cache = model.decode_step(params, cache, S + i, tok)
+        tok = torch.argmax(dl[:, -1:], dim=-1)
+    return logits, torch.cat(out, 1)
+
+
+def _smoke_card_vs_cpu(torch, dev, arch: str) -> dict:
+    """The smoke config (seed-0 weights) on the card against the port on
+    the CPU (plain kernels): every unit's prefill and decode on the same
+    inputs within UNIT_TOL (:func:`unit_parity`); the whole prefill's
+    logits and SMOKE_NEW greedy tokens reported beside them."""
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_init
+    model = build_model(smoke_config(get_config(arch)))
+    p_cpu = tree_init(model.param_defs(), 0, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    toks = np.random.default_rng(1).integers(1, model.cfg.vocab_size,
+                                             size=(2, SMOKE_PROMPT))
+    with torch.inference_mode():
+        units = unit_parity(torch, model, p_gpu, torch.as_tensor(toks, device=dev),
+                            cpu=p_cpu)
+        lg, tg = _greedy(torch, model, p_gpu, torch.as_tensor(toks, device=dev), SMOKE_NEW)
+        lc, tc = _greedy(torch, model, p_cpu, torch.as_tensor(toks), SMOKE_NEW)
+    check(bool(torch.isfinite(lg).all()), f"{arch} smoke: finite logits on the card")
+    return {"config": model.cfg.name, "unit_ratios": units,
+            "prefill_logits_max_abs_err": float((lg.float().cpu() - lc.float()).abs().max()),
+            "tokens_card": tg.cpu().tolist(), "tokens_cpu": tc.tolist(),
+            "token_agreement": float((tg.cpu() == tc).float().mean())}
+
+
+def _serve_state_model(torch, dev, smi: str, arch: str) -> dict:
+    """`arch` at published width and depth, seed-0 weights: the prefill
+    bundle on FAMILY_BATCH prompts of FAMILY_PROMPT tokens, its state landed
+    in a FAMILY_CACHE cache, ``Server.generate`` of FAMILY_NEW greedy tokens;
+    twice, the tokens the same.  Then :func:`unit_parity` on a
+    PARITY_PROMPT-token prompt and the smoke config card against CPU."""
+    import numpy as np
+    from repro_torch.configs import (CommConfig, RunConfig, ShapeConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.kernels import ops
+    from repro_torch.models.param import tree_init
+    from repro_torch.runtime import Server, build_serve_step, land_prefill
+    cfg = get_config(arch)
+    rc = RunConfig(model=cfg, shape=ShapeConfig("serve", FAMILY_CACHE, FAMILY_BATCH,
+                                                "decode"),
+                   comm=CommConfig(), train=TrainConfig())
+    pre = build_serve_step(rc, "prefill", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tree_init(pre.param_defs, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    server = Server(rc, params=params, device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, size=(FAMILY_BATCH, FAMILY_PROMPT)), device=dev)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, state = pre.fn(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            cache = land_prefill(server.init_cache(), state)
+        del state
+        first = torch.argmax(logits[:, -1:], dim=-1).cpu().numpy()
+        t2 = time.perf_counter()
+        res = server.generate(first, max_new=FAMILY_NEW, prefill_pos=FAMILY_PROMPT,
+                              cache=cache)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = ops.launch_counts()
+        check(bool(torch.isfinite(logits).all()), f"{arch}: finite prefill logits")
+        check(res.tokens.shape == (FAMILY_BATCH, FAMILY_NEW)
+              and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+              f"{arch}: {FAMILY_NEW} token ids a row")
+        check(launches["rmsnorm"] > 0, f"{arch}: rmsnorm launched {launches}")
+        if cfg.family == "hybrid":
+            check(launches["flash_attention"] > 0, f"{arch}: flash launched {launches}")
+        runs.append({"tokens": res.tokens, "launches": launches,
+                     "prefill_ms": 1e3 * (t1 - t0), "land_ms": 1e3 * (t2 - t1),
+                     "decode_ms_per_token": 1e3 * (t3 - t2) / FAMILY_NEW,
+                     "tokens_per_s": FAMILY_BATCH * FAMILY_NEW / (t3 - t2)})
+        del cache, logits
+    check(np.array_equal(runs[0]["tokens"], runs[1]["tokens"]),
+          f"{arch}: the same tokens on a second run")
+    with torch.inference_mode():
+        parity = unit_parity(torch, pre.model, params,
+                             prompts[:PARITY_ROWS, :PARITY_PROMPT])
+        whole = whole_model_f32(torch, pre.model, params,
+                                prompts[:PARITY_ROWS, :PARITY_PROMPT])
+    out = {"arch": arch, "family": cfg.family, "card": smi,
+           "params": int(sum(x.numel() for x in _leaves(params))),
+           "param_init_s": init_s, "batch": FAMILY_BATCH, "prompt": FAMILY_PROMPT,
+           "cache": FAMILY_CACHE, "new_tokens": FAMILY_NEW,
+           "runs": [{k: v for k, v in r.items() if k != "tokens"} for r in runs],
+           "tokens_same_on_second_run": True,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "unit_parity": parity, "unit_tolerance": {"bf16": UNIT_TOL, "f32": F32_TOL},
+           "whole_model_f32_rel_l2": whole, "whole_model_f32_tolerance": WHOLE_F32_TOL,
+           "smoke_card_vs_cpu": _smoke_card_vs_cpu(torch, dev, arch)}
+    del server, params, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_check(torch, dev) -> dict:
+    """The smoke config's MoE layer (seed-0 weights, f32) on the card
+    against the CPU on the same inputs, within MOE_LAYER_TOL: router columns
+    made equal in pairs (every token's logits tie exactly, on both), and
+    capacity_factor 0.5 (assignments dropped at capacity); the expert ids,
+    the kept slots and the drop count equal on both."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.models.param import tree_init
+    cfg = smoke_config(get_config(MOE_ARCH))
+    p = tree_init(build_model(cfg).param_defs(), 0, device="cpu")
+    lp = {k: v[0].float() for k, v in p["blocks"]["ffn"].items()}
+    x = torch.randn((2, 256, cfg.d_model), generator=torch.Generator().manual_seed(5))
+    tied = lp["router"].clone()
+    tied[:, 2], tied[:, 3] = tied[:, 1], tied[:, 0]
+    out = {}
+    for case, router, mcfg in (
+            ("tied_router", tied, cfg.moe),
+            ("drops", lp["router"], dataclasses.replace(cfg.moe, capacity_factor=0.5))):
+        res = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            lpd = {k: (router if k == "router" else v).to(d) for k, v in lp.items()}
+            xd = x.to(d)
+            y, aux = moe.moe_ffn(lpd, xd, mcfg)
+            T = x.shape[0] * x.shape[1]
+            _, _, ids = moe.route((xd.reshape(T, -1) @ lpd["router"]).float(), mcfg.top_k)
+            _, keep = moe.slots(ids, mcfg.num_experts, moe.capacity(mcfg, T))
+            res[where] = (y.cpu(), aux.cpu(), ids.cpu(), keep.cpu())
+        (yg, ag, ig, kg), (yc, ac, ic, kc) = res["card"], res["cpu"]
+        r = max(_ratio(yg, yc, MOE_LAYER_TOL), _ratio(ag, ac, MOE_LAYER_TOL))
+        dropped = int((~kc).sum())
+        check(r <= 1.0, f"moe {case}: card within {MOE_LAYER_TOL} of the CPU ({r})")
+        check(torch.equal(ig, ic) and torch.equal(kg, kc),
+              f"moe {case}: expert ids and kept slots the CPU's")
+        if case == "drops":
+            check(dropped > 0, "moe drops: assignments dropped at capacity 0.5")
+        else:
+            check(bool((ig[:, 0] < ig[:, 1]).all()), "moe tied_router: ties to the lower id")
+        out[case] = {"ratio": r, "dropped": dropped, "assigned": int(kc.numel()),
+                     "capacity": moe.capacity(mcfg, x.shape[0] * x.shape[1])}
+    return out
+
+
+def phase_families(torch, dev, smi: str) -> dict:
+    """mamba2-780m and zamba2-1.2b at published width and depth
+    (:func:`_serve_state_model`); phi3.5-moe-42b-a6.6b at published width, 8
+    of its 32 layers, through the ServingEngine mono, disagg and
+    disagg-int8 (:func:`phase_engine`'s checks on 8 requests: mono and
+    disagg bit for bit, all four kernels in the int8 run) and its MoE layer
+    against the CPU (:func:`moe_layer_check`).  Kernel counts reset before
+    each run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_init
+    out = {}
+    for arch in STATE_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = _serve_state_model(torch, dev, smi, arch)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+        emit({"phase": "families", **out[arch]})
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tree_init(build_model(cfg).param_defs(), 0, device=dev)
+    eng, _ = phase_engine(torch, dev, cfg, params, n_requests=MOE_REQUESTS,
+                          phase="families_engine")
+    del params
+    torch.cuda.empty_cache()
+    moe_row = {"arch": MOE_ARCH, "family": "moe", "card": smi, "layers": MOE_LAYERS,
+               **eng, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "moe_layer_card_vs_cpu": moe_layer_check(torch, dev),
+               "phase_s": time.perf_counter() - t0}
+    emit({"phase": "families", **moe_row})
+    out[MOE_ARCH] = moe_row
+    return out
+
+
 def _demangle(names: list[str]) -> list[str]:
     """`void (anonymous namespace)::k<128, 4>(...)` -> `k<128, 4>`, by
     c++filt where the toolkit has it; the mangled names otherwise."""
@@ -3145,6 +3584,8 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     lap("profile")
+    fam = phase_families(torch, dev, smi) if "families" in phases else {}
+    lap("families")
     train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}
     route, ckpt, facade, chaos, elastic = {}, {}, {}, {}, {}
     if any(p in phases for p in ("train", "zero", "buckets", "ring", "sites",
@@ -3184,7 +3625,7 @@ def main() -> int:
                 shutil.rmtree(os.path.dirname(ckpt["facade_src"]), ignore_errors=True)
             names = [n for n in ("chaos", "elastic") if n in phases]
             if names:
-                ce = phase_chaos_elastic(torch, d, names)
+                ce = phase_chaos_elastic(torch, d, names, spec=CUT_SPEC)
                 chaos, elastic = ce.get("chaos", {}), ce.get("elastic", {})
                 emit({"phase": "chaos_elastic", "spawn_s": ce["spawn_s"],
                       **{f"{n}_s_by_rank": ce[n]["seconds_by_rank"] for n in names}})
@@ -3235,6 +3676,10 @@ def main() -> int:
                          "launches_restart_1x4": on_restart.get(name, 0),
                          "launches_serve_chaos": on_serve_chaos.get(name, 0),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
+                         "launches_families": {
+                             a: (r["runs"][-1]["launches"] if "runs" in r
+                                 else r["launches"]).get(name, 0)
+                             for a, r in fam.items()},
                          **({"ring_wire_block": ring_row} if ring_row else {}),
                          "max_abs_err": main_row["max_abs_err"],
                          "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

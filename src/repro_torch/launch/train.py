@@ -33,6 +33,9 @@ As the JAX launcher, the CLI has no flag for ``CommConfig.algo`` or
 ``bucket_mb``: :func:`main` and :func:`train` take a ``comm`` keyword, a
 :class:`CommConfig` that every rank runs with in place of the one the
 ``--mode``/``--streams``/``--chunk-mb``/``--compress`` flags build.
+:func:`main_runs` runs several such launches, one after the other, in one
+spawn of the ranks (a new mesh and Trainer each), which saves starting the
+ranks again for each.
 
 ``--ckpt-dir`` (with ``--ckpt-every``) checkpoints the run, rank 0 writing,
 and a restart with the same directory restores the newest checkpoint;
@@ -58,6 +61,7 @@ the incident timeline), ``--profile-step`` runs one step of rank 0 under
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -203,6 +207,7 @@ def profile_summary(prof, wall_s: float) -> dict:
 def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
     """One rank's run; returns its report.  `comm`, when given, is the run's
     CommConfig in place of the flags'."""
+    t_start = time.perf_counter()
     dev = torch.device("cpu")
     if args.device != "cpu":
         if not torch.cuda.is_available():
@@ -210,6 +215,7 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
                              f"device; pass --device cpu for the plain versions")
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -310,19 +316,59 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
     if hasattr(data, "close"):
         data.close()
     trainer.close()
+    report["run_s"] = time.perf_counter() - t_start
     if args.report:
         with open(f"{args.report}.rank{rank}.json", "w") as f:
             json.dump(report, f)
     return report
 
 
-def _worker(rank: int, args, init_method: str, comm) -> None:
+def _worker(rank: int, runs: list, init_method: str) -> None:
+    """Rank `rank` of a spawn: each (args, comm) of `runs` in turn, the last
+    run's memory given back before the next one starts."""
     dist.init_process_group(BACKEND, init_method=init_method, rank=rank,
-                            world_size=args.ranks)
+                            world_size=runs[0][0].ranks)
     try:
-        train(args, rank, comm)
+        for i, (args, comm) in enumerate(runs):
+            if i:
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+            train(args, rank, comm)
     finally:
         dist.destroy_process_group()
+
+
+def main_runs(runs: list) -> None:
+    """Launches `runs`, each ``(argv, comm)`` as :func:`main` takes them, one
+    after the other in one spawn of ranks: every rank runs each in turn.
+    The runs must name the same ``--ranks`` and ``--device``; each writes its
+    own ``--report``."""
+    parsed = []
+    for argv, comm in runs:
+        args = parser().parse_args(argv)
+        _check_flags(args)
+        parsed.append((args, comm))
+    first = parsed[0][0]
+    for args, _ in parsed[1:]:
+        if (args.ranks, args.device) != (first.ranks, first.device):
+            raise SystemExit(f"main_runs: every run needs --ranks {first.ranks} "
+                             f"and --device {first.device}, got --ranks "
+                             f"{args.ranks} --device {args.device}")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        raise SystemExit("main_runs spawns its ranks: run it without RANK "
+                         "and WORLD_SIZE")
+    if first.ranks == 1:
+        for args, comm in parsed:
+            train(args, 0, comm)
+        return
+    rdv = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        torch.multiprocessing.start_processes(
+            _worker, args=(parsed, f"file://{os.path.join(rdv, 'rendezvous')}"),
+            nprocs=first.ranks, join=True, start_method="spawn")
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
 
 
 def main(argv=None, *, comm: Optional[CommConfig] = None) -> None:
@@ -339,16 +385,7 @@ def main(argv=None, *, comm: Optional[CommConfig] = None) -> None:
         finally:
             dist.destroy_process_group()
         return
-    if args.ranks == 1:
-        train(args, 0, comm)
-        return
-    rdv = tempfile.mkdtemp(prefix="repro_torch_train_")
-    try:
-        torch.multiprocessing.start_processes(
-            _worker, args=(args, f"file://{os.path.join(rdv, 'rendezvous')}", comm),
-            nprocs=args.ranks, join=True, start_method="spawn")
-    finally:
-        shutil.rmtree(rdv, ignore_errors=True)
+    main_runs([(argv, comm)])
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ class PD:
     """One parameter definition."""
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]          # logical axis name per dim
-    init: str = "normal"                     # normal | zeros | ones
+    init: str = "normal"                     # normal | zeros | ones | ssm_a | arange
     scale: Optional[float] = None            # stddev; default fan-in
     dtype: str = "bfloat16"
 
@@ -57,10 +57,16 @@ def init_one(pd: PD, gen: torch.Generator, device) -> torch.Tensor:
         return torch.zeros(pd.shape, dtype=dt, device=device)
     if pd.init == "ones":
         return torch.ones(pd.shape, dtype=dt, device=device)
+    if pd.init == "ssm_a":
+        # mamba2's A: -uniform(1, 16), drawn in f32
+        u = torch.rand(pd.shape, generator=gen, dtype=torch.float32, device=device)
+        return u.mul_(15.0).add_(1.0).neg_().to(dt)
+    if pd.init == "arange":
+        n = pd.shape[-1]
+        r = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        return r.expand(pd.shape).contiguous().to(dt)
     if pd.init != "normal":
-        raise NotImplementedError(
-            f"init {pd.init!r} belongs to a model family not ported yet "
-            f"(ROADMAP.md queue A, 'other model families')")
+        raise ValueError(f"unknown init {pd.init!r}")
     std = pd.scale if pd.scale is not None else _fan_in(pd) ** -0.5
     x = torch.randn(pd.shape, generator=gen, dtype=torch.float32, device=device)
     return x.mul_(std).to(dt)

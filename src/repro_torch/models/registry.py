@@ -2,12 +2,14 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import QUEUED, Transformer
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.mamba2 import MambaLM
+from repro_torch.models.transformer import Transformer
 
 
-def build_model(cfg: ModelConfig) -> Transformer:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name!r}) is not ported to PyTorch "
-            f"yet ({QUEUED})")
+def build_model(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return MambaLM(cfg)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
     return Transformer(cfg)

@@ -14,8 +14,11 @@ the stack is split at bucket boundaries and each segment's stacked
 parameters pass through its bucket's flush hook before they are unstacked
 into layers, so the hook's backward runs once every layer of the segment has
 returned its gradient.
-The MoE, vision-stub and encoder-decoder branches of the JAX model are not
-ported yet and raise :class:`NotImplementedError` naming the ROADMAP item.
+The MoE family's FFN is ``models/moe.py``'s scatter path, its aux loss summed
+over the layers and added to the loss as the JAX package adds it.  The
+vision-stub, encoder-decoder and sinusoidal-position branches of the JAX
+model are not ported yet and raise :class:`NotImplementedError` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.param import PD
 
 QUEUED = "ROADMAP.md queue A, 'the other model families'"
@@ -103,7 +107,14 @@ class Transformer:
         c = self.cfg
         d, f = c.d_model, c.d_ff
         if c.moe is not None:
-            raise _queued(f"the MoE FFN of {c.name!r}")
+            E = c.moe.num_experts
+            return {
+                "router": PD((n_layers, d, E), ("layers", "d_model", None)),
+                "gate": PD((n_layers, E, d, f), ("layers", "experts", "d_model", None)),
+                "up": PD((n_layers, E, d, f), ("layers", "experts", "d_model", None)),
+                "down": PD((n_layers, E, f, d), ("layers", "experts", None, "d_model"),
+                           scale=(f ** -0.5) / (2 * c.num_layers) ** 0.5),
+            }
         return {
             "gate": PD((n_layers, d, f), ("layers", "d_model", "ff")),
             "up": PD((n_layers, d, f), ("layers", "d_model", "ff")),
@@ -137,8 +148,6 @@ class Transformer:
 
     def _check_dense(self) -> None:
         c = self.cfg
-        if c.moe is not None:
-            raise _queued(f"the MoE FFN of {c.name!r}")
         if c.encoder_layers:
             raise _queued(f"the encoder of {c.name!r}")
         if c.vision_tokens:
@@ -150,16 +159,23 @@ class Transformer:
     # training forward and loss
     # ------------------------------------------------------------------
 
+    def _ffn(self, p: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The block's FFN on `h`: (y, aux), aux None off the MoE family."""
+        if self.cfg.moe is not None:
+            return moe_lib.moe_ffn(p, h, self.cfg.moe)
+        return L.swiglu(p, h), None
+
     def _block(self, lp: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         c = self.cfg
         h = L.rms_norm(x, lp["ln1"], c.norm_eps)
         x = x + L.attention(lp["attn"], h, self.dims, positions=positions)
         h = L.rms_norm(x, lp["ln2"], c.norm_eps)
-        return x + L.swiglu(lp["ffn"], h)
+        y, aux = self._ffn(lp["ffn"], h)
+        return x + y, aux
 
     def _apply_block(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                     gather) -> torch.Tensor:
+                     gather) -> tuple[torch.Tensor, torch.Tensor | None]:
         return self._block(gather(lp) if gather is not None else lp, x, positions)
 
     def _layers(self, blocks: dict, flush_segments) -> list[dict]:
@@ -174,9 +190,9 @@ class Transformer:
     def hidden_states(self, params: dict, batch: dict, *, gather=None,
                       flush_segments=None):
         """Full-sequence forward to the final-norm hidden states.  Returns
-        (x, aux_loss, n_prefix), as the JAX package's does (aux 0 and no
-        prefix in the dense family).  `gather(lp)` maps one layer's stored
-        parameters (ZeRO shards) to those it computes with.
+        (x, aux_loss, n_prefix), as the JAX package's does (aux the MoE
+        layers' sum, 0 in the dense family; no prefix).  `gather(lp)` maps
+        one layer's stored parameters (ZeRO shards) to those it computes with.
         `flush_segments` = (layer bounds tiling the stack in order, one flush
         hook per bound) splits the stack at gradient-bucket boundaries; the
         forward computes the same numbers."""
@@ -185,14 +201,16 @@ class Transformer:
         tokens = batch["tokens"]
         x = params["embed"][tokens]
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self._layers(params["blocks"], flush_segments):
             if c.remat:
-                x = checkpoint(self._apply_block, lp, x, positions, gather,
-                               use_reentrant=False)
+                x, a = checkpoint(self._apply_block, lp, x, positions, gather,
+                                  use_reentrant=False)
             else:
-                x = self._apply_block(lp, x, positions, gather)
+                x, a = self._apply_block(lp, x, positions, gather)
+            if a is not None:
+                aux = aux + a
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux, 0
 
     def loss(self, params: dict, batch: dict, *, gather=None,
@@ -207,7 +225,15 @@ class Transformer:
                                        flush_segments=flush_segments)
         sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels)
         loss = sum_loss / torch.clamp(count, min=1.0)
-        return loss, {"ce_loss": loss, "aux_loss": aux, "tokens": count}
+        metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": count}
+        if self.cfg.moe is not None:
+            loss = loss + 0.01 * aux / self.cfg.num_layers
+        return loss, metrics
+
+    def logits(self, params: dict, batch: dict, *, gather=None) -> torch.Tensor:
+        """(B, S, V) f32 logits of every position."""
+        x, _, _ = self.hidden_states(params, batch, gather=gather)
+        return (x @ self._head(params)).float()
 
     def _head(self, params: dict) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -253,7 +279,7 @@ class Transformer:
                                          ring=ring)
             x = x + a
             h = L.rms_norm(x, lp["ln2"], c.norm_eps)
-            x = x + L.swiglu(lp["ffn"], h)
+            x = x + self._ffn(lp["ffn"], h)[0]
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
         logits = (x @ self._head(params)).float()
         return logits, cache
@@ -279,7 +305,7 @@ class Transformer:
             attn_out = self._prefill_attn(q, k, v)
             x = x + attn_out.reshape(B, S, -1) @ lp["attn"]["wo"]
             h = L.rms_norm(x, lp["ln2"], c.norm_eps)
-            x = x + L.swiglu(lp["ffn"], h)
+            x = x + self._ffn(lp["ffn"], h)[0]
             ks.append(self._to_ring(k, W, S))
             vs.append(self._to_ring(v, W, S))
         x = L.rms_norm(x[:, -1:, :], params["ln_f"], c.norm_eps)

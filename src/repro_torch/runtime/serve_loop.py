@@ -31,6 +31,25 @@ class ServeResult:
     lengths: Optional[np.ndarray] = None   # (B,) tokens generated per row
 
 
+def land_prefill(cache: dict, state: dict) -> dict:
+    """Copy a prefill's state tree into a decode cache of the model's
+    ``cache_defs(B, max_len)``, in place, and return the cache: each leaf
+    into the leading corner of its cache leaf, in the cache's dtype (a
+    mamba state whole; K/V of the prompt's length into the first S
+    positions of the seq dim, so that decoding past S does not meet the
+    clamp of a cache only S long)."""
+    if set(state) != set(cache):
+        raise ValueError(f"prefill state leaves {sorted(state)} are not the "
+                         f"cache's {sorted(cache)}")
+    for n, leaf in state.items():
+        dst = cache[n]
+        if leaf.dim() != dst.dim() or any(a > b for a, b in zip(leaf.shape, dst.shape)):
+            raise ValueError(f"prefill leaf {n!r} of shape {tuple(leaf.shape)} does "
+                             f"not fit the cache's {tuple(dst.shape)}")
+        dst[tuple(slice(0, s) for s in leaf.shape)].copy_(leaf)
+    return cache
+
+
 class Server:
     """Greedy batched decoding against the decode StepBundle, on `device`
     ("cuda" by default; "cpu" runs the kernels' plain versions).

@@ -83,6 +83,13 @@ class ServingEngine:
             raise ValueError(
                 f"ServingEngine is decoder-only; {rc.model.name!r} has "
                 f"{rc.model.encoder_layers} encoder layers")
+        if rc.model.family in ("ssm", "hybrid"):
+            # the reference's engine reads the prefill's "k"/"v" leaves and
+            # fails on these families' states (ROADMAP.md §C 16)
+            raise ValueError(
+                f"ServingEngine serves KV-cache models; {rc.model.name!r} is "
+                f"of the {rc.model.family!r} family, whose decode state is "
+                f"not a KV cache: serve it with Server.generate")
         self.rc = rc
         self.mode = mode
         self.path = path

@@ -78,16 +78,32 @@ TRAIN = dict(warmup_steps=1, total_steps=10, lr=1e-3)
 def spawn(fn, nprocs: int, args: tuple, deadline: float = DEADLINE_S) -> None:
     """Run fn(rank, *args) in `nprocs` spawned processes; fail the test if a
     rank raises or they are not all done within `deadline` seconds (a
-    collective posted by some ranks only would wait for gloo's timeout)."""
+    collective posted by some ranks only would wait for gloo's timeout).
+    The failure names the rank, how it ended (its traceback, or its exit
+    code or signal) and the seconds since the start; at the deadline, the
+    ranks still running and the exit codes of the others."""
+    name = getattr(fn, "__name__", str(fn))
+    t0 = time.monotonic()
     ctx = torch.multiprocessing.start_processes(
         fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
-    end = time.monotonic() + deadline
-    while not ctx.join(timeout=5):
-        if time.monotonic() > end:
+    while True:
+        try:
+            if ctx.join(timeout=5):
+                return
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            pytest.fail(f"{name}: rank {e.error_index} of {nprocs} (pid "
+                        f"{getattr(e, 'error_pid', None)}) failed after "
+                        f"{time.monotonic() - t0:.1f} s: {e}")
+        if time.monotonic() - t0 > deadline:
+            alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+            codes = {r: p.exitcode for r, p in enumerate(ctx.processes)
+                     if not p.is_alive()}
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
-            pytest.fail(f"{nprocs} ranks not done within {deadline} s")
+            pytest.fail(f"{name}: {nprocs} ranks not done within {deadline} s: "
+                        f"ranks {alive} still running, exit codes {codes}")
 
 
 def rank_leaves(rank: int) -> dict:

@@ -34,6 +34,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from datetime import timedelta
 
 import numpy as np
@@ -213,13 +214,29 @@ def _port_rank(rank: int, init: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+REF_TIMEOUT_S = 900
+
+
 @pytest.fixture(scope="module")
 def runs(multidev, tmp_path_factory):
+    """The reference's run (a multidev subprocess on 4 fake devices), then
+    the port's 4 ranks.  A failure names its stage: the reference (its
+    output's tail, or its timeout), a rank of the port (``spawn`` names it,
+    how it ended and when), or a rank's missing report."""
     out = tmp_path_factory.mktemp("troute")
     tests = os.path.dirname(os.path.abspath(__file__))
-    ref = multidev(f"TESTS = {tests!r}\nOUT = {str(out)!r}\n" + _REF, ndev=4,
-                   timeout=900)
+    t0 = time.monotonic()
+    try:
+        ref = multidev(f"TESTS = {tests!r}\nOUT = {str(out)!r}\n" + _REF, ndev=4,
+                       timeout=REF_TIMEOUT_S)
+    except (AssertionError, subprocess.TimeoutExpired) as e:
+        pytest.fail(f"the reference's run failed after {time.monotonic() - t0:.1f} "
+                    f"s (timeout {REF_TIMEOUT_S} s): {e}")
     spawn(_port_rank, 4, (f"file://{out}/rdv", str(out)))
+    missing = [r for r in range(4) if not os.path.exists(f"{out}/port_rank{r}.json")]
+    if missing:
+        pytest.fail(f"the port's ranks {missing} ended without writing their "
+                    f"report; {out} holds {sorted(os.listdir(out))}")
     port = [json.load(open(f"{out}/port_rank{r}.json")) for r in range(4)]
     return out, ref, port
 
