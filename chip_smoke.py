@@ -12,7 +12,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             kernel's registers and spills (ptxas); no kernel may spill;
 3. kernels  each kernel against its plain PyTorch version on the card, at the
             serving and training paths' shapes (the flash forward also at
-            h2o-danube-3-4b's head dim 120; the flash backward at the
+            h2o-danube-3-4b's head dim 120, and not causal at
+            whisper-medium's encoder and cross-attention shapes, a query
+            block under 64 rows, a one-key last tile and GQA with
+            Sq != Sk; the flash backward at the
             llama3.2-3b, qwen1.5-0.5b and danube shapes, causal and
             windowed), with times (CUDA events), the bound and a PyTorch
             library call as a yardstick where one exists (SDPA; with a
@@ -141,11 +144,24 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             5e-2), and the smoke configs' units card against CPU; then
             phi3.5-moe-42b-a6.6b at published width, 8 of its 32 layers,
             through the ServingEngine mono, disagg and disagg-int8 (8
-            requests, the engine phase's checks, all four kernels), and its
-            smoke MoE layer
+            requests, the engine phase's checks, all four kernels; each
+            request's first int8 departure from mono with mono's margin,
+            the logit change and the MoE routing of that step, ROADMAP.md
+            section C 17), and its smoke MoE layer
             card against CPU with tied router logits and with drops at
-            capacity.  Tokens/s, prefill ms, decode ms per token, peak memory
-            and launches per arch.
+            capacity; then whisper-medium (24 + 24 layers, 8 requests of
+            1500 source frames and 256 tokens, a 448-token cache) and
+            pixtral-12b (40 layers, 8 requests of 1024 patch embeddings and
+            1024 tokens, a 3072-token cache) at published width and depth:
+            the prefill bundle, ``land_prefill`` and ``Server.generate`` of
+            64 greedy tokens from the prefix and prompt's end, twice (the
+            same tokens), the flash and rmsnorm launches the path's count;
+            the whole model in f32 on the card (pixtral at 16 of 40
+            layers), a prefill against a prefill of all but the last 16
+            prompt tokens and 16 decode steps, within 1e-2 relative L2; the
+            smoke config's prefill logits card against CPU within 5e-2.
+            Tokens/s, encoder and prefill ms, decode ms per token, peak
+            memory and launches per arch.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -153,6 +169,8 @@ Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gc
 import json
 import math
@@ -252,11 +270,15 @@ def phase_kernels(torch, dev) -> dict:
     # rmsnorm: every block's two norms and the final one; rows = prompt tokens
     # in prefill, slots in decode (llama3.2-3b, d 3072; phi3.5-moe, d 4096),
     # tokens of a training step (qwen1.5-0.5b, d 1024), of a B8 S2048 prefill
-    # (mamba2-780m, d 1536; zamba2-1.2b, d 2048).  Tolerance: one bf16 ulp.
+    # (mamba2-780m, d 1536; zamba2-1.2b, d 2048), pixtral-12b's B8 prefill of
+    # 1024 patches and 1024 tokens and its decode (d 5120: the row path's
+    # 20-step instance), whisper-medium's encoder over 8 x 1500 frames
+    # (d 1024).  Tolerance: one bf16 ulp.
     for R, d, on in ((1024, 3072, "serving"), (8, 3072, "serving"),
                      (4096, 1024, "train"), (16384, 1536, "families"),
                      (16384, 2048, "families"), (1024, 4096, "families"),
-                     (8, 4096, "families")):
+                     (8, 4096, "families"), (16384, 5120, "families"),
+                     (8, 5120, "families"), (12000, 1024, "families")):
         nbytes = 2 * R * d * 2 + d * 2
         k = sets_for(nbytes)
         xs = [rnd(R, d) for _ in range(k)]
@@ -389,16 +411,25 @@ def phase_kernels(torch, dev) -> dict:
     # ragged length, a query suffix, head dim 64 with a window,
     # h2o-danube-3-4b's full width (32 q heads over 8, head dim 120), with
     # and without a window, qwen1.5-0.5b's training step, zamba2-1.2b's
-    # prefill and phi3.5-moe's longest engine prompt (32 over 8, head dim 128).
+    # prefill, phi3.5-moe's longest engine prompt (32 over 8, head dim 128)
+    # and pixtral-12b's prefill of 1024 patches and 1024 tokens; then the
+    # non-causal branch: whisper-medium's encoder (B8 over 1500 frames, 16
+    # heads of 64) and its prefill's cross-attention (256 tokens to 1500
+    # frames), with its causal decoder self-attention at S 256 beside them,
+    # a query block shorter than one 64-row tile, a last key tile of one
+    # key (Sk 65), and GQA with Sq != Sk.
     # Tolerance: 2e-2 (bf16 output, P rounded to bf16, sums in another order).
     from torch.nn.attention.bias import causal_lower_right
 
-    def sdpa(q, k, v, window=None):
-        """Causal SDPA with queries aligned to the end of the keys; a window
-        as a dense boolean mask, with enable_gqa only where the heads differ
-        (SDPA's memory-efficient backend takes a mask but no GQA)."""
+    def sdpa(q, k, v, window=None, causal=True):
+        """SDPA with queries aligned to the end of the keys (causal), or
+        not causal; a window as a dense boolean mask, with enable_gqa only
+        where the heads differ (SDPA's memory-efficient backend takes a mask
+        but no GQA)."""
         Sq, Sk = q.shape[1], k.shape[1]
-        if window is not None:
+        if not causal:
+            mask = dict(is_causal=False, enable_gqa=True)
+        elif window is not None:
             mask = dict(attn_mask=window_mask(torch, dev, Sq, Sk, window),
                         enable_gqa=q.shape[2] != k.shape[2])
         elif Sq == Sk:
@@ -409,42 +440,51 @@ def phase_kernels(torch, dev) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             **mask).transpose(1, 2)
 
-    cases = [(1, 1024, 1024, 24, 8, 128, None, "serving"),
-             (1, 777, 777, 24, 8, 128, None, "serving"),
-             (1, 128, 1024, 24, 8, 128, None, "serving"),
-             (2, 512, 512, 8, 2, 64, 256, "serving"),
-             (1, 512, 512, 24, 8, 128, None, "serving"),
-             (1, 128, 128, 24, 8, 128, None, "serving"),
-             (1, 1024, 1024, 32, 8, 120, None, "serving"),
-             (1, 1024, 1024, 32, 8, 120, 256, "serving"),
-             (1, 4096, 4096, 16, 16, 64, None, "train"),
-             (8, 2048, 2048, 32, 32, 64, None, "families"),
-             (1, 1024, 1024, 32, 8, 128, None, "families")]
-    for B, Sq, Sk, H, KH, D, window, on in cases:
-        pairs = causal_pairs(torch, dev, Sq, Sk, window)
+    cases = [(1, 1024, 1024, 24, 8, 128, None, True, "serving"),
+             (1, 777, 777, 24, 8, 128, None, True, "serving"),
+             (1, 128, 1024, 24, 8, 128, None, True, "serving"),
+             (2, 512, 512, 8, 2, 64, 256, True, "serving"),
+             (1, 512, 512, 24, 8, 128, None, True, "serving"),
+             (1, 128, 128, 24, 8, 128, None, True, "serving"),
+             (1, 1024, 1024, 32, 8, 120, None, True, "serving"),
+             (1, 1024, 1024, 32, 8, 120, 256, True, "serving"),
+             (1, 4096, 4096, 16, 16, 64, None, True, "train"),
+             (8, 2048, 2048, 32, 32, 64, None, True, "families"),
+             (1, 1024, 1024, 32, 8, 128, None, True, "families"),
+             (8, 2048, 2048, 32, 8, 128, None, True, "families"),
+             (8, 1500, 1500, 16, 16, 64, None, False, "families"),
+             (8, 256, 1500, 16, 16, 64, None, False, "families"),
+             (8, 256, 256, 16, 16, 64, None, True, "families"),
+             (2, 20, 1500, 16, 16, 64, None, False, "check"),
+             (2, 100, 65, 16, 16, 64, None, False, "check"),
+             (2, 200, 1500, 32, 8, 128, None, False, "check")]
+    for B, Sq, Sk, H, KH, D, window, causal, on in cases:
+        pairs = causal_pairs(torch, dev, Sq, Sk, window) if causal else Sq * Sk
         nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KH * D)
         k = sets_for(nbytes)
         qkv = [(rnd(B, Sq, H, D), rnd(B, Sk, KH, D), rnd(B, Sk, KH, D))
                for _ in range(k)]
-        got = fa.flash_attention_bshd(*qkv[0], causal=True, window=window)
-        want = ref.flash_attention_ref(*qkv[0], causal=True, window=window)
+        got = fa.flash_attention_bshd(*qkv[0], causal=causal, window=window)
+        want = ref.flash_attention_ref(*qkv[0], causal=causal, window=window)
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         check(bool((diff <= 2e-2 + 2e-2 * want.float().abs()).all()),
-              f"flash {(B, Sq, Sk, H, KH, D, window)} max err {err}")
+              f"flash {(B, Sq, Sk, H, KH, D, window, causal)} max err {err}")
         e = {"on_path": on,
              "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KH": KH, "D": D,
-                       "causal": True, "window": window},
+                       "causal": causal, "window": window},
              "max_abs_err": err,
              "ms": cuda_ms(torch, lambda i: fa.flash_attention_bshd(
-                 *qkv[i], causal=True, window=window), k, 50),
+                 *qkv[i], causal=causal, window=window), k, 50),
              "plain_ms": cuda_ms(torch, lambda i: ref.flash_attention_ref(
-                 *qkv[i], causal=True, window=window), k, 5)}
-        e["library_ms"] = cuda_ms(torch, lambda i: sdpa(*qkv[i], window), k, 50)
+                 *qkv[i], causal=causal, window=window), k, 5)}
+        e["library_ms"] = cuda_ms(torch, lambda i: sdpa(*qkv[i], window, causal), k, 50)
         e["library_max_abs_err"] = float(
-            (sdpa(*qkv[0], window).float() - want.float()).abs().max())
+            (sdpa(*qkv[0], window, causal).float() - want.float()).abs().max())
         e["bound_ms"], e["bound_by"] = bound(nbytes, 4 * D * H * B * pairs, PEAK_BF16)
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
         rows.setdefault("flash_attention", []).append(e)
+        del qkv, got, want, diff
     rows["flash_attention_bwd"] = phase_kernels_flash_bwd(torch, dev, rnd)
     torch.cuda.synchronize()
     return rows
@@ -763,11 +803,14 @@ def full_width(torch, dev):
 
 
 def phase_engine(torch, dev, cfg, params, n_requests: int = 16,
-                 phase: str = "engine") -> tuple:
+                 phase: str = "engine", trace: bool = False) -> tuple:
     """`cfg` with `params` serving `n_requests` seeded requests (prompts
     128-1024, 16-64 new tokens) on 8 slots of a 2048-token cache through the
     ServingEngine, mono, disagg with no codec and disagg-int8; each run's
-    checks, and mono against disagg with no codec bit for bit."""
+    checks, and mono against disagg with no codec bit for bit.  With
+    `trace` the mono and disagg-int8 runs are recorded (:class:`_EngineTrace`)
+    and each request's first departure of int8 from mono is measured
+    (:func:`int8_departures`)."""
     import numpy as np
     from repro_torch.configs import CommConfig, RunConfig, ShapeConfig, TrainConfig
     from repro_torch.core.kvship import kv_cache_bytes, plan_kv_ship
@@ -799,6 +842,7 @@ def phase_engine(torch, dev, cfg, params, n_requests: int = 16,
                     tel.reset(f"{key}/hop{h}:{hop.name}")
         eng = ServingEngine(rc, mode="mono" if path is None else "disagg",
                             path=path, params=params, device=dev)
+        tr = _EngineTrace(torch, eng) if trace and label != "disagg" else None
         for prompt, mnew in reqs:
             check(eng.submit(prompt, mnew) is not None, "request admitted")
         torch.cuda.synchronize()
@@ -808,6 +852,8 @@ def phase_engine(torch, dev, cfg, params, n_requests: int = 16,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
+        if tr is not None:
+            tr.close()
         check(stats["completed"] == len(reqs), f"{label}: all {len(reqs)} requests complete")
         for rid, (_, mnew) in enumerate(reqs):
             toks = eng.results[rid]
@@ -833,7 +879,7 @@ def phase_engine(torch, dev, cfg, params, n_requests: int = 16,
         total_tokens = int(sum(len(t) for t in eng.results.values()))
         dec = sorted(eng.timings["decode_s"])
         runs[label] = {
-            "results": dict(eng.results), "launches": launches,
+            "results": dict(eng.results), "launches": launches, "trace": tr,
             "timeline": eng.batcher.timeline(),
             "summary": {
                 "wall_s": wall, "tokens": total_tokens, "tokens_per_s": total_tokens / wall,
@@ -857,13 +903,154 @@ def phase_engine(torch, dev, cfg, params, n_requests: int = 16,
     agree = float(np.mean([np.mean(mono[r] == q8[r]) for r in mono]))
     ctx = {"reqs": reqs, "rc": rc, "mono_results": mono,
            "mono_timeline": runs["mono"]["timeline"]}
-    return {"arch": cfg.name,
-            "params": int(sum(p.numel() for p in _leaves(params))),
-            "requests": len(reqs),
-            "mono_disagg_bit_identical": True,
-            "int8_token_agreement_with_mono": agree,
-            "launches": runs["disagg_int8"]["launches"],
-            "summaries": {k: r["summary"] for k, r in runs.items()}}, ctx
+    out = {"arch": cfg.name,
+           "params": int(sum(p.numel() for p in _leaves(params))),
+           "requests": len(reqs),
+           "mono_disagg_bit_identical": True,
+           "int8_token_agreement_with_mono": agree,
+           "launches": runs["disagg_int8"]["launches"],
+           "summaries": {k: r["summary"] for k, r in runs.items()}}
+    if trace:
+        out["int8_departures"] = int8_departures(runs["mono"]["trace"],
+                                                 runs["disagg_int8"]["trace"], mono, q8)
+    return out, ctx
+
+
+class _EngineTrace:
+    """A ServingEngine's decode steps, recorded while it runs: each
+    decoding request's f32 logits on the host, keyed by (rid, index of the
+    token the step chose), and for the MoE family every layer's expert ids
+    and kept assignments of the whole batch (``models.moe.slots`` wrapped),
+    with the requests the step decoded.  :meth:`close` unwraps both, so
+    that nothing holds the engine (and its parameters) once it is gone."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.models import moe
+        real_slots = moe.slots
+        self.logits, self.step_of, self.steps = {}, {}, []
+        calls = []
+
+        def slots(ids, E, C):
+            pos, keep = real_slots(ids, E, C)
+            calls.append((ids, keep.reshape(ids.shape)))
+            return pos, keep
+
+        fn = eng.server.bundle.fn
+
+        def step(params, cache, pos, tok):
+            calls.clear()
+            logits, cache = fn(params, cache, pos, tok)
+            lg = logits[:, -1].float().cpu().numpy()
+            route = None
+            if calls:           # (layers, slots, top_k) each
+                route = (torch.stack([c[0] for c in calls]).cpu().numpy(),
+                         torch.stack([c[1] for c in calls]).cpu().numpy())
+            members = {rid: (slot, len(eng._outputs[rid]))
+                       for slot, rid in eng._decoding.items()}
+            for rid, (slot, t) in members.items():
+                self.logits[(rid, t)] = lg[slot]
+                self.step_of[(rid, t)] = (len(self.steps), slot)
+            self.steps.append((members, route))
+            return logits, cache
+
+        self._restore = [(moe, "slots", real_slots), (eng.server.bundle, "fn", fn)]
+        moe.slots = slots
+        eng.server.bundle.fn = step
+
+    def close(self) -> None:
+        for obj, name, real in self._restore:
+            setattr(obj, name, real)
+        self._restore = []
+
+
+def int8_departures(mono: _EngineTrace, q8: _EngineTrace, mono_res: dict,
+                    q8_res: dict) -> dict:
+    """Each request's first token where the disagg-int8 run departs from
+    mono, read from the two runs' traces (the same schedule: the same
+    requests decode in the same slots at the same steps): mono's top-1 minus
+    top-2 logit there; the largest change of that step's logits between the
+    runs; whether the step's routing (every layer's expert ids and kept
+    assignments, all slots) differs between the runs, from which layer,
+    and whether this request's own assignments differ or were dropped at
+    capacity; and which other requests of the batch had departed already
+    (their tokens, hence their rows, differ).  Beside them, the int8 KV's
+    own effect: the largest logit change at the steps before any departure
+    where the routing is the same and no request of the batch has departed.
+    A departure is "routing" where the routing differs, "near_tie" where it
+    does not and mono's margin is within that own effect, else
+    "unexplained"."""
+    import numpy as np
+    first = {}
+    for rid, m in mono_res.items():
+        d = np.flatnonzero(m != q8_res[rid])
+        first[rid] = int(d[0]) if d.size else None
+
+    def departed(members, rid, t) -> list:
+        return sorted(r for r, (_, tt) in members.items()
+                      if r != rid and first[r] is not None and first[r] < tt)
+
+    def same_route(a, b) -> bool:
+        if a is None or b is None:
+            return a is b
+        return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+    own = []
+    for key, lm in mono.logits.items():
+        rid, t = key
+        if key not in q8.logits or (first[rid] is not None and t >= first[rid]):
+            continue
+        (sm, _), (sq, _) = mono.step_of[key], q8.step_of[key]
+        (mem, rm), (_, rq) = mono.steps[sm], q8.steps[sq]
+        if same_route(rm, rq) and not departed(mem, rid, t):
+            own.append(float(np.abs(q8.logits[key] - lm).max()))
+    own_max = max(own) if own else 0.0
+    rows = []
+    for rid, t in sorted(first.items()):
+        if t is None:
+            continue
+        key = (rid, t)
+        lm, lq = mono.logits[key], q8.logits[key]
+        top = np.sort(lm)
+        (sm, slot), (sq, _) = mono.step_of[key], q8.step_of[key]
+        (mem, rm), (_, rq) = mono.steps[sm], q8.steps[sq]
+        row = {"rid": rid, "token": t, "of": int(len(mono_res[rid])),
+               "step": sm, "slot": slot,
+               "mono_margin": float(top[-1] - top[-2]),
+               "max_logit_change": float(np.abs(lq - lm).max()),
+               "others_departed": departed(mem, rid, t)}
+        if rm is not None:
+            diff_l = [int(i) for i in range(rm[0].shape[0])
+                      if not (np.array_equal(rm[0][i], rq[0][i])
+                              and np.array_equal(rm[1][i], rq[1][i]))]
+            row.update(
+                routing_differs=bool(diff_l),
+                first_layer_routing_differs=diff_l[0] if diff_l else None,
+                own_routing_differs=not (np.array_equal(rm[0][:, slot], rq[0][:, slot])
+                                         and np.array_equal(rm[1][:, slot], rq[1][:, slot])),
+                own_dropped_mono=int((~rm[1][:, slot]).sum()),
+                own_dropped_int8=int((~rq[1][:, slot]).sum()),
+                batch_dropped_mono=int((~rm[1]).sum()),
+                batch_assignments=int(rm[1].size))
+        else:
+            row["routing_differs"] = False
+        if row["routing_differs"]:
+            row["kind"] = "routing"
+        elif not row["others_departed"] and row["mono_margin"] <= own_max:
+            row["kind"] = "near_tie"
+        else:
+            row["kind"] = "unexplained"
+        rows.append(row)
+    routes = [r for _, r in mono.steps if r is not None]
+    kinds = [r["kind"] for r in rows]
+    return {"departures": rows,
+            "requests_departing": len(rows), "requests": len(first),
+            "by_kind": {k: kinds.count(k) for k in ("routing", "near_tie", "unexplained")},
+            "int8_own_max_logit_change": own_max,
+            "int8_own_positions": len(own),
+            "mono_decode_steps_with_a_drop": (
+                sum(bool((~r[1]).any()) for r in routes) / len(routes) if routes else None),
+            "mono_dropped_share": (
+                float(np.mean([float((~r[1]).mean()) for r in routes])) if routes else None)}
 
 
 # ---------------------------------------------------------------------------
@@ -3098,7 +3285,7 @@ def phase_serve_chaos(torch, dev, cfg, params, ctx: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 19: the ssm, hybrid and moe families served at full width
+# phase 19: the ssm, hybrid, moe, audio and vlm families served at full width
 # ---------------------------------------------------------------------------
 
 STATE_ARCHS = ("mamba2-780m", "zamba2-1.2b")
@@ -3278,13 +3465,14 @@ def whole_model_f32(torch, model, params, tokens) -> dict:
     return out
 
 
-def _greedy(torch, model, params, tokens, n: int):
-    """Prefill, land into a cache of the prompt plus `n`, then `n` greedy
-    decode steps: (prefill logits, the (B, n) tokens)."""
+def _greedy(torch, model, params, tokens, n: int, stub=None):
+    """Prefill (with the family's stub inputs `stub`), land into a cache of
+    the patch prefix, the prompt and `n`, then `n` greedy decode steps:
+    (prefill logits, the (B, n) tokens)."""
     from repro_torch.models.param import tree_init
     from repro_torch.runtime import land_prefill
-    S = tokens.shape[1]
-    logits, st = model.prefill(params, {"tokens": tokens})
+    S = model.cfg.vision_tokens + tokens.shape[1]
+    logits, st = model.prefill(params, {"tokens": tokens, **(stub or {})})
     cache = land_prefill(tree_init(model.cache_defs(tokens.shape[0], S + n), 0,
                                    device=tokens.device), st)
     tok = torch.argmax(logits[:, -1:], dim=-1)
@@ -3444,14 +3632,224 @@ def moe_layer_check(torch, dev) -> dict:
     return out
 
 
+# whisper-medium (encoder-decoder) and pixtral-12b (vision prefix): arch ->
+# (prompt tokens, decode cache).  Whisper: 256-token prompts in its published
+# 448-token decoder context, 1500 source frames; pixtral: 1024 patch
+# embeddings and 1024 tokens in a 3072-token cache.
+PREFIX_ARCHS = {"whisper-medium": (256, 448), "pixtral-12b": (1024, 3072)}
+# the whole-model f32 check's depth where the f32 copy beside the bf16 model
+# must be cut: pixtral at 16 of 40 layers is ~22.9 GB of f32 parameters
+PREFIX_F32_LAYERS = {"pixtral-12b": 16}
+PREFIX_TAIL = 16              # prompt tokens decoded one by one in that check
+
+
+def prefix_launches(cfg) -> dict:
+    """Kernel launches of one request set of :func:`_serve_prefix_model`: a
+    prefill (flash for every attention: the encoder's, the decoder's and
+    the cross-attention's; rmsnorm for each block's norms and the final
+    ones, the rows of a call in one launch) and FAMILY_NEW decode steps
+    (rmsnorm only: decode's attention is plain torch)."""
+    L, E = cfg.num_layers, cfg.encoder_layers
+    per_block = 3 if E else 2
+    rms_step = L * per_block + 1
+    return {"flash_attention": E + L * (2 if E else 1),
+            "rmsnorm": (2 * E + 1 if E else 0) + rms_step * (1 + FAMILY_NEW)}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Attention's plain version (``impl="plain"``) on the card inside this
+    block, for the whole-model checks in f32: the flash kernel takes bf16
+    only.  rmsnorm's kernel has f32 entries and keeps running."""
+    from repro_torch.kernels import ops
+    kernel = ops.flash_attention
+    ops.flash_attention = functools.partial(kernel, impl="plain")
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def prefix_whole_f32(torch, model, params, batch, layers=None) -> dict:
+    """The whole model in f32 on the card (`params` cast; the first `layers`
+    decoder layers where the f32 copy must be cut), on PARITY_ROWS rows of
+    `batch`: the last logits of one prefill of the stub inputs and the
+    prompt against those of a prefill of all but the last PREFIX_TAIL prompt
+    tokens followed by as many ``decode_step``s, within WHOLE_F32_TOL
+    relative L2.  A wrong prefix offset, sinusoidal position or
+    cross-attention cache moves them by O(1).  Beside it, how far one f32
+    ulp of noise in the token embeddings moves the full prefill's logits:
+    the model's own amplification of a rounding."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_init
+    from repro_torch.runtime import land_prefill
+    cfg = model.cfg
+    if layers is not None:
+        model = build_model(dataclasses.replace(cfg, num_layers=layers))
+
+    def cast(tree, cut):
+        if isinstance(tree, dict):
+            return {k: cast(v, cut or k == "blocks") for k, v in tree.items()}
+        return (tree[:layers] if cut and layers is not None else tree).float()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    p32 = cast(params, False)
+    rows = {k: v[:PARITY_ROWS] for k, v in batch.items()}
+    toks = rows["tokens"]
+    B, S = toks.shape
+    n0 = model.cfg.vision_tokens
+    with plain_attention(), torch.inference_mode():
+        lf, _ = model.prefill(p32, rows)
+        cache = {n: v.float() for n, v in tree_init(
+            model.cache_defs(B, n0 + S), 0, device=toks.device).items()}
+        land_prefill(cache, model.prefill(
+            p32, {**rows, "tokens": toks[:, :S - PREFIX_TAIL]})[1])
+        for i in range(S - PREFIX_TAIL, S):
+            ld, cache = model.decode_step(p32, cache, n0 + i, toks[:, i:i + 1])
+        del cache
+        g = torch.Generator(device=toks.device).manual_seed(3)
+        noisy = torch.randn(p32["embed"].shape, generator=g, device=toks.device)
+        noisy.sign_().mul_(2.0 ** -24).add_(1.0).mul_(p32["embed"])
+        ln, _ = model.prefill({**p32, "embed": noisy}, rows)
+        del noisy
+    out = {"layers": model.cfg.num_layers, "rows": B, "prompt": S, "prefix": n0,
+           "decoded": PREFIX_TAIL,
+           "decode_vs_prefill_card": _rel_l2(ld[:, -1], lf[:, -1]),
+           "one_ulp_embedding_noise_card": _rel_l2(ln[:, -1], lf[:, -1]),
+           "same_argmax": bool(torch.equal(ld[:, -1].argmax(-1), lf[:, -1].argmax(-1))),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    del p32
+    torch.cuda.empty_cache()
+    check(out["decode_vs_prefill_card"] <= WHOLE_F32_TOL,
+          f"{cfg.name}: whole model in f32, decode against prefill "
+          f"{out['decode_vs_prefill_card']} <= {WHOLE_F32_TOL}")
+    return out
+
+
+def _smoke_prefix_card_vs_cpu(torch, dev, arch: str) -> dict:
+    """The smoke config (seed-0 bf16 weights, seeded stub inputs) on the
+    card against the port on the CPU (plain kernels): the prefill's logits
+    within UNIT_TOL, absolute and relative; SMOKE_NEW greedy tokens beside
+    them."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import batch_concrete, build_model
+    from repro_torch.models.param import tree_init
+    model = build_model(smoke_config(get_config(arch)))
+    p_cpu = tree_init(model.param_defs(), 0, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    batch = batch_concrete(model.cfg, "prefill", 2, SMOKE_PROMPT, seed=1, device="cpu")
+    stub = {k: v for k, v in batch.items() if k != "tokens"}
+    with torch.inference_mode():
+        lg, tg = _greedy(torch, model, p_gpu, batch["tokens"].to(dev), SMOKE_NEW,
+                         _to(stub, dev))
+        lc, tc = _greedy(torch, model, p_cpu, batch["tokens"], SMOKE_NEW, stub)
+    r = _ratio(lg, lc, UNIT_TOL)
+    check(bool(torch.isfinite(lg).all()), f"{arch} smoke: finite logits on the card")
+    check(r <= 1.0, f"{arch} smoke: prefill logits card within {UNIT_TOL} of the CPU ({r})")
+    return {"config": model.cfg.name, "prefill_logits_ratio": r,
+            "prefill_logits_max_abs_err": float((lg.float().cpu() - lc.float()).abs().max()),
+            "tokens_card": tg.cpu().tolist(), "tokens_cpu": tc.tolist(),
+            "token_agreement": float((tg.cpu() == tc).float().mean())}
+
+
+def _serve_prefix_model(torch, dev, smi: str, arch: str) -> dict:
+    """`arch` at published width and depth, seed-0 weights: the prefill
+    bundle on FAMILY_BATCH requests (seeded stub inputs and prompts of
+    PREFIX_ARCHS' length), its cache landed in a decode cache of
+    PREFIX_ARCHS' length, ``Server.generate`` of FAMILY_NEW greedy tokens
+    from position n_prefix + prompt; twice, the tokens the same, the kernel
+    launches :func:`prefix_launches`' each time.  Then the whole model in
+    f32 (:func:`prefix_whole_f32`) and the smoke config card against CPU."""
+    from repro_torch.configs import (CommConfig, RunConfig, ShapeConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.kernels import ops
+    from repro_torch.models import batch_concrete
+    from repro_torch.models.param import tree_init
+    from repro_torch.runtime import Server, build_serve_step, land_prefill
+    import numpy as np
+    cfg = get_config(arch)
+    prompt, cache_len = PREFIX_ARCHS[arch]
+    rc = RunConfig(model=cfg, shape=ShapeConfig("serve", cache_len, FAMILY_BATCH, "decode"),
+                   comm=CommConfig(), train=TrainConfig())
+    pre = build_serve_step(rc, "prefill", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tree_init(pre.param_defs, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    server = Server(rc, params=params, device=dev)
+    batch = batch_concrete(cfg, "prefill", FAMILY_BATCH, prompt, seed=0, device=dev)
+    pos0 = cfg.vision_tokens + prompt
+    want = prefix_launches(cfg)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, state = pre.fn(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            cache = land_prefill(server.init_cache(), state)
+        del state
+        first = torch.argmax(logits[:, -1:], dim=-1).cpu().numpy()
+        t2 = time.perf_counter()
+        res = server.generate(first, max_new=FAMILY_NEW, prefill_pos=pos0, cache=cache)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = ops.launch_counts()
+        check(bool(torch.isfinite(logits).all()), f"{arch}: finite prefill logits")
+        check(res.tokens.shape == (FAMILY_BATCH, FAMILY_NEW)
+              and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+              f"{arch}: {FAMILY_NEW} token ids a row")
+        check(all(launches[k] == n for k, n in want.items()),
+              f"{arch}: launches {launches}, the path's {want}")
+        run = {"tokens": res.tokens, "launches": launches,
+               "prefill_ms": 1e3 * (t1 - t0), "land_ms": 1e3 * (t2 - t1),
+               "decode_ms_per_token": 1e3 * (t3 - t2) / FAMILY_NEW,
+               "tokens_per_s": FAMILY_BATCH * FAMILY_NEW / (t3 - t2)}
+        if cfg.encoder_layers:        # the encoder alone, after the counted run
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            with torch.inference_mode():
+                pre.model._encode(params, batch)
+            torch.cuda.synchronize()
+            run["encoder_ms"] = 1e3 * (time.perf_counter() - t4)
+        runs.append(run)
+        del cache, logits
+    check(np.array_equal(runs[0]["tokens"], runs[1]["tokens"]),
+          f"{arch}: the same tokens on a second run")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del server
+    whole = prefix_whole_f32(torch, pre.model, params, batch, PREFIX_F32_LAYERS.get(arch))
+    out = {"arch": arch, "family": cfg.family, "card": smi,
+           "params": int(sum(x.numel() for x in _leaves(params))),
+           "config_param_count": cfg.param_count(), "param_init_s": init_s,
+           "batch": FAMILY_BATCH, "prompt": prompt, "prefix": cfg.vision_tokens,
+           "source_frames": cfg.source_len if cfg.encoder_layers else 0,
+           "cache": cache_len, "new_tokens": FAMILY_NEW, "decode_from": pos0,
+           "runs": [{k: v for k, v in r.items() if k != "tokens"} for r in runs],
+           "tokens_same_on_second_run": True, "launches_per_request_set": want,
+           "peak_mem_gb": peak,
+           "whole_model_f32_rel_l2": whole, "whole_model_f32_tolerance": WHOLE_F32_TOL}
+    del params, pre, batch
+    torch.cuda.empty_cache()
+    out["smoke_card_vs_cpu"] = _smoke_prefix_card_vs_cpu(torch, dev, arch)
+    return out
+
+
 def phase_families(torch, dev, smi: str) -> dict:
     """mamba2-780m and zamba2-1.2b at published width and depth
     (:func:`_serve_state_model`); phi3.5-moe-42b-a6.6b at published width, 8
     of its 32 layers, through the ServingEngine mono, disagg and
     disagg-int8 (:func:`phase_engine`'s checks on 8 requests: mono and
-    disagg bit for bit, all four kernels in the int8 run) and its MoE layer
-    against the CPU (:func:`moe_layer_check`).  Kernel counts reset before
-    each run."""
+    disagg bit for bit, all four kernels in the int8 run; where int8 departs
+    from mono, :func:`int8_departures`) and its MoE layer against the CPU
+    (:func:`moe_layer_check`); whisper-medium and pixtral-12b at published
+    width and depth (:func:`_serve_prefix_model`).  Kernel counts reset
+    before each run."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3467,7 +3865,7 @@ def phase_families(torch, dev, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     params = tree_init(build_model(cfg).param_defs(), 0, device=dev)
     eng, _ = phase_engine(torch, dev, cfg, params, n_requests=MOE_REQUESTS,
-                          phase="families_engine")
+                          phase="families_engine", trace=True)
     del params
     torch.cuda.empty_cache()
     moe_row = {"arch": MOE_ARCH, "family": "moe", "card": smi, "layers": MOE_LAYERS,
@@ -3476,6 +3874,11 @@ def phase_families(torch, dev, smi: str) -> dict:
                "phase_s": time.perf_counter() - t0}
     emit({"phase": "families", **moe_row})
     out[MOE_ARCH] = moe_row
+    for arch in PREFIX_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = _serve_prefix_model(torch, dev, smi, arch)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+        emit({"phase": "families", **out[arch]})
     return out
 
 

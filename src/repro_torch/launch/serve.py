@@ -11,11 +11,16 @@ serving tier (monolithic or disaggregated prefill/decode over a WAN path).
       --cache-len 4096 --tokens 64
   python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --smoke \
       --device cpu --engine disagg --compress int8 --requests 4
+  python -m repro_torch.launch.serve --arch whisper-medium --smoke \
+      --device cpu --tokens 8
 
 Runs on the CUDA card unless ``--device cpu``.  The ``ssm`` and ``hybrid``
 families (mamba2-780m, zamba2-1.2b) serve on ``--engine fixed`` only: the
 serving tier ships and lands KV caches, and their decode state is not one
-(ROADMAP.md §C 16).  ``--chaos-drop START STOP``
+(ROADMAP.md §C 16).  So do whisper-medium (``audio``: the engine is
+decoder-only, as the JAX package's) and pixtral-12b (``vlm``: its prefill
+takes patch embeddings, ROADMAP.md §C 18); ``--engine fixed`` decodes them
+against a zero cache, as the JAX launcher does.  ``--chaos-drop START STOP``
 (disagg only) serves on the CosmoGrid topology with its backup link and
 drops the amsterdam -> tokyo light path for engine steps [START, STOP): the
 KV ships reship and reroute, and the incident timeline prints at the end.
@@ -134,10 +139,11 @@ def main(argv=None):
     shape = ShapeConfig(base.name, S, B, "decode")
     rc = RunConfig(model=cfg, shape=shape, comm=CommConfig(), train=TrainConfig())
     if args.engine != "fixed":
-        if cfg.family in ("ssm", "hybrid"):
-            raise SystemExit(f"--engine {args.engine} serves KV-cache models; "
-                             f"{cfg.name} is of the {cfg.family!r} family: "
-                             f"use --engine fixed")
+        if cfg.family in ("ssm", "hybrid", "audio", "vlm"):
+            raise SystemExit(f"--engine {args.engine} serves decoder-only "
+                             f"KV-cache models on token prompts; {cfg.name} "
+                             f"is of the {cfg.family!r} family: use --engine "
+                             f"fixed")
         _run_engine(rc, args)
         return
     server = Server(rc, seed=args.seed, device=args.device)

@@ -1,1 +1,1 @@
-from repro_torch.models.registry import build_model  # noqa: F401
+from repro_torch.models.registry import batch_concrete, build_model  # noqa: F401

@@ -1,5 +1,6 @@
-"""Shared neural-net layers: norm, RoPE, attention (train / prefill and
-cached decode), SwiGLU MLP, chunked cross-entropy.
+"""Shared neural-net layers: norm, RoPE and sinusoidal positions, attention
+(train / prefill, cross-attention, and cached decode), SwiGLU MLP, chunked
+cross-entropy.
 
 Conventions, as in the JAX package:
   * activations are (B, S, ...);
@@ -8,6 +9,7 @@ Conventions, as in the JAX package:
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import NamedTuple, Optional
 
@@ -22,6 +24,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """Differentiable through :class:`repro_torch.kernels.ops.RMSNormFn`: the
     JAX package's ``custom_vjp``, dx in x's dtype, dw in w's."""
     return ops.rmsnorm(x, w, eps=eps)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal embeddings (whisper-style), f32 (S, d) of the (S,)
+    `positions`: sines of the first d/2 frequencies, then their cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions.to(torch.float32)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
@@ -79,14 +92,29 @@ def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions):
 
 
 def attention(p: dict, x: torch.Tensor, dims: AttnDims, *,
-              positions=None) -> torch.Tensor:
-    """Full-sequence self-attention (prefill).  Cross-attention (the
-    JAX package's ``kv_x``) belongs to the encoder-decoder family, which is
-    not ported yet."""
+              positions=None, kv_x: Optional[torch.Tensor] = None,
+              kv_positions=None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  Cross-attention when
+    `kv_x` (B, Skv, d) is given (whisper's decoder): k/v projected from
+    `kv_x` without bias, RoPE only where ``dims.rope_theta`` is set, and no
+    causal mask or window."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, dims, positions)
-    o = ops.flash_attention(q, k, v, causal=dims.causal, window=dims.window)
-    return o.reshape(B, S, -1) @ p["wo"]
+    H, KH, Dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    if kv_x is None:
+        q, k, v = _project_qkv(p, x, dims, positions)
+        causal, window = dims.causal, dims.window
+    else:
+        Skv = kv_x.shape[1]
+        q = (x @ p["wq"]).reshape(B, S, H, Dh)
+        k = (kv_x @ p["wk"]).reshape(B, Skv, KH, Dh)
+        v = (kv_x @ p["wv"]).reshape(B, Skv, KH, Dh)
+        if dims.rope_theta and positions is not None:
+            q = apply_rope(q, positions, dims.rope_theta)
+            if kv_positions is not None:
+                k = apply_rope(k, kv_positions, dims.rope_theta)
+        causal, window = False, None
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return o.reshape(B, S, H * Dh) @ p["wo"]
 
 
 def decode_attention(p: dict, x: torch.Tensor, dims: AttnDims, *,

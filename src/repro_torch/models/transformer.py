@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM, dense family: the training forward and loss
-(differentiable), prefill and cached decode.
+"""Decoder-only and encoder-decoder transformer LM: the dense, moe, vlm
+(stub patch-embedding inputs) and audio (stub frame-embedding inputs,
+encoder-decoder) families; the training forward and loss (differentiable),
+prefill and cached decode.
 
 Parameters keep the JAX package's stacked ``(layers, ...)`` layout and names;
 the layers are a Python loop over that stack (the JAX package scans it).
@@ -8,17 +10,22 @@ With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 ``gather`` hook of :meth:`Transformer.hidden_states` and
 :meth:`Transformer.loss` (ZeRO-3's all-gather at use) is applied to each
 layer's parameters inside that checkpoint, so the recompute gathers the
-layer again and the gathered layer is not kept between the passes.
+layer again and the gathered layer is not kept between the passes; the
+encoder's layers take it the same way.
 With ``flush_segments`` (the bucketed backward flush, ``core/buckets.py``)
 the stack is split at bucket boundaries and each segment's stacked
 parameters pass through its bucket's flush hook before they are unstacked
 into layers, so the hook's backward runs once every layer of the segment has
 returned its gradient.
 The MoE family's FFN is ``models/moe.py``'s scatter path, its aux loss summed
-over the layers and added to the loss as the JAX package adds it.  The
-vision-stub, encoder-decoder and sinusoidal-position branches of the JAX
-model are not ported yet and raise :class:`NotImplementedError` naming the
-ROADMAP item.
+over the layers and added to the loss as the JAX package adds it.
+The vlm family prepends ``batch["patch_embeds"]`` (B, vision_tokens, d) to
+the token embeddings: RoPE positions run over the prefix, the prefill cache
+holds its K/V, and ``loss``/``logits`` drop its positions.  The audio family
+(``rope_theta`` 0) adds sinusoidal positions to the tokens and encodes
+``batch["source_frames"]`` (B, source_len, d) with a non-causal encoder; each
+decoder block cross-attends to its output, whose per-layer K/V prefill keeps
+in the cache as ``xk``/``xv`` for decode.
 """
 from __future__ import annotations
 
@@ -30,13 +37,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.param import PD
-
-QUEUED = "ROADMAP.md queue A, 'the other model families'"
-
-
-def _queued(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet ({QUEUED})")
-
 
 def layer_params(blocks: dict, i: int) -> dict:
     """Layer `i`'s parameters: views into the stacked tensors."""
@@ -124,8 +124,6 @@ class Transformer:
 
     def param_defs(self) -> dict:
         c = self.cfg
-        if c.encoder_layers:
-            raise _queued(f"the encoder of {c.name!r}")
         d, V, nL = c.d_model, c.vocab_size, c.num_layers
         blocks = {
             "attn": self._attn_defs(nL),
@@ -133,6 +131,9 @@ class Transformer:
             "ln1": PD((nL, d), ("layers", "d_model"), init="ones"),
             "ln2": PD((nL, d), ("layers", "d_model"), init="ones"),
         }
+        if c.encoder_layers:
+            blocks["xattn"] = self._attn_defs(nL)
+            blocks["lnx"] = PD((nL, d), ("layers", "d_model"), init="ones")
         defs = {
             "blocks": blocks,
             "embed": PD((V, d), ("vocab", "d_model"), scale=0.02),
@@ -140,20 +141,20 @@ class Transformer:
         }
         if not c.tie_embeddings:
             defs["head"] = PD((d, V), ("d_model", "vocab"))
-        return defs
-
-    # ------------------------------------------------------------------
-    # forward
-    # ------------------------------------------------------------------
-
-    def _check_dense(self) -> None:
-        c = self.cfg
         if c.encoder_layers:
-            raise _queued(f"the encoder of {c.name!r}")
-        if c.vision_tokens:
-            raise _queued(f"the vision-stub inputs of {c.name!r}")
-        if not c.rope_theta:
-            raise _queued(f"the sinusoidal positions of {c.name!r}")
+            eL = c.encoder_layers
+            defs["encoder"] = {
+                "attn": self._attn_defs(eL),
+                "ffn": {
+                    "gate": PD((eL, d, c.d_ff), ("layers", "d_model", "ff")),
+                    "up": PD((eL, d, c.d_ff), ("layers", "d_model", "ff")),
+                    "down": PD((eL, c.d_ff, d), ("layers", "ff", "d_model")),
+                },
+                "ln1": PD((eL, d), ("layers", "d_model"), init="ones"),
+                "ln2": PD((eL, d), ("layers", "d_model"), init="ones"),
+                "ln_f": PD((d,), ("d_model",), init="ones"),
+            }
+        return defs
 
     # ------------------------------------------------------------------
     # training forward and loss
@@ -165,18 +166,22 @@ class Transformer:
             return moe_lib.moe_ffn(p, h, self.cfg.moe)
         return L.swiglu(p, h), None
 
-    def _block(self, lp: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _block(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
+               enc_out) -> tuple[torch.Tensor, torch.Tensor | None]:
         c = self.cfg
         h = L.rms_norm(x, lp["ln1"], c.norm_eps)
         x = x + L.attention(lp["attn"], h, self.dims, positions=positions)
+        if enc_out is not None:
+            h = L.rms_norm(x, lp["lnx"], c.norm_eps)
+            x = x + L.attention(lp["xattn"], h, self.dims, kv_x=enc_out)
         h = L.rms_norm(x, lp["ln2"], c.norm_eps)
         y, aux = self._ffn(lp["ffn"], h)
         return x + y, aux
 
     def _apply_block(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
-                     gather) -> tuple[torch.Tensor, torch.Tensor | None]:
-        return self._block(gather(lp) if gather is not None else lp, x, positions)
+                     enc_out, gather) -> tuple[torch.Tensor, torch.Tensor | None]:
+        return self._block(gather(lp) if gather is not None else lp, x,
+                           positions, enc_out)
 
     def _layers(self, blocks: dict, flush_segments) -> list[dict]:
         if flush_segments is None:
@@ -187,42 +192,94 @@ class Transformer:
             layers += unstack_layers(hook(seg), hi - lo)
         return layers
 
+    def _embed_inputs(self, params: dict, batch: dict):
+        """Token (+ stub modality) embedding: (x, positions, n_prefix).  The
+        vlm family's patch embeddings come first, cast to the embedding's
+        dtype; the audio family adds sinusoidal positions."""
+        c = self.cfg
+        x = params["embed"][batch["tokens"]]
+        n_prefix = 0
+        if c.vision_tokens:
+            patches = batch["patch_embeds"].to(x.dtype)            # (B, n_vis, d)
+            x = torch.cat([patches, x], dim=1)
+            n_prefix = patches.shape[1]
+        positions = torch.arange(x.shape[1], device=x.device)
+        if not c.rope_theta:      # sinusoidal absolute positions (whisper)
+            x = x + L.sinusoidal_positions(positions, c.d_model).to(x.dtype)[None]
+        return x, positions, n_prefix
+
+    def _encoder_block(self, lp: dict, x: torch.Tensor, gather) -> torch.Tensor:
+        c = self.cfg
+        if gather is not None:
+            lp = gather(lp)
+        dims = self.dims._replace(causal=False, window=None)
+        h = L.rms_norm(x, lp["ln1"], c.norm_eps)
+        x = x + L.attention(lp["attn"], h, dims)
+        h = L.rms_norm(x, lp["ln2"], c.norm_eps)
+        return x + L.swiglu(lp["ffn"], h)
+
+    def _encode(self, params: dict, batch: dict, gather=None):
+        """The audio family's encoder over ``batch["source_frames"]`` (cast
+        to the parameters' dtype) with sinusoidal positions: non-causal
+        self-attention without a window, `gather` applied to each layer
+        inside its checkpoint, then the final norm.  None without one.
+        The checkpoint runs only where autograd records (training): in
+        prefill it would save nothing, and its first call imports
+        ``torch._dynamo``, seconds of host time on the first request."""
+        c = self.cfg
+        if not c.encoder_layers:
+            return None
+        enc = params["encoder"]
+        src = batch["source_frames"].to(enc["ln_f"].dtype)        # (B, src_len, d)
+        pos = torch.arange(src.shape[1], device=src.device)
+        x = src + L.sinusoidal_positions(pos, c.d_model).to(src.dtype)[None]
+        blocks = {k: enc[k] for k in ("attn", "ffn", "ln1", "ln2")}
+        remat = c.remat and torch.is_grad_enabled()
+        for lp in unstack_layers(blocks, c.encoder_layers):
+            if remat:
+                x = checkpoint(self._encoder_block, lp, x, gather, use_reentrant=False)
+            else:
+                x = self._encoder_block(lp, x, gather)
+        return L.rms_norm(x, enc["ln_f"], c.norm_eps)
+
     def hidden_states(self, params: dict, batch: dict, *, gather=None,
                       flush_segments=None):
         """Full-sequence forward to the final-norm hidden states.  Returns
         (x, aux_loss, n_prefix), as the JAX package's does (aux the MoE
-        layers' sum, 0 in the dense family; no prefix).  `gather(lp)` maps
-        one layer's stored parameters (ZeRO shards) to those it computes with.
+        layers' sum, 0 elsewhere; n_prefix the vlm family's patch
+        positions at the front of x).  `gather(lp)` maps one layer's stored
+        parameters (ZeRO shards) to those it computes with.
         `flush_segments` = (layer bounds tiling the stack in order, one flush
         hook per bound) splits the stack at gradient-bucket boundaries; the
         forward computes the same numbers."""
         c = self.cfg
-        self._check_dense()
-        tokens = batch["tokens"]
-        x = params["embed"][tokens]
-        positions = torch.arange(x.shape[1], device=x.device)
+        enc_out = self._encode(params, batch, gather)
+        x, positions, n_prefix = self._embed_inputs(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self._layers(params["blocks"], flush_segments):
             if c.remat:
-                x, a = checkpoint(self._apply_block, lp, x, positions, gather,
-                                  use_reentrant=False)
+                x, a = checkpoint(self._apply_block, lp, x, positions, enc_out,
+                                  gather, use_reentrant=False)
             else:
-                x, a = self._apply_block(lp, x, positions, gather)
+                x, a = self._apply_block(lp, x, positions, enc_out, gather)
             if a is not None:
                 aux = aux + a
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
-        return x, aux, 0
+        return x, aux, n_prefix
 
     def loss(self, params: dict, batch: dict, *, gather=None,
              flush_segments=None) -> tuple[torch.Tensor, dict]:
-        """batch["tokens"]: (B, S+1), teacher forcing.  Returns
-        (mean_local_loss, metrics).  `gather`, `flush_segments`: as in
+        """batch["tokens"]: (B, S+1), teacher forcing, and the family's stub
+        inputs.  Returns (mean_local_loss, metrics); the patch positions
+        carry no loss.  `gather`, `flush_segments`: as in
         :meth:`hidden_states`."""
         tokens = batch["tokens"]
         inputs = {**batch, "tokens": tokens[:, :-1]}
         labels = tokens[:, 1:]
-        x, aux, _ = self.hidden_states(params, inputs, gather=gather,
-                                       flush_segments=flush_segments)
+        x, aux, n_prefix = self.hidden_states(params, inputs, gather=gather,
+                                              flush_segments=flush_segments)
+        if n_prefix:
+            x = x[:, n_prefix:]
         sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels)
         loss = sum_loss / torch.clamp(count, min=1.0)
         metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": count}
@@ -231,8 +288,11 @@ class Transformer:
         return loss, metrics
 
     def logits(self, params: dict, batch: dict, *, gather=None) -> torch.Tensor:
-        """(B, S, V) f32 logits of every position."""
-        x, _, _ = self.hidden_states(params, batch, gather=gather)
+        """(B, S, V) f32 logits of every token position (the patch
+        positions dropped)."""
+        x, _, n_prefix = self.hidden_states(params, batch, gather=gather)
+        if n_prefix:
+            x = x[:, n_prefix:]
         return (x @ self._head(params)).float()
 
     def _head(self, params: dict) -> torch.Tensor:
@@ -248,26 +308,36 @@ class Transformer:
 
     def cache_defs(self, batch_size: int, max_len: int) -> dict:
         c = self.cfg
-        if c.encoder_layers:
-            raise _queued(f"the cross-attention cache of {c.name!r}")
         Dh = c.resolved_head_dim
         W = self.cache_width(max_len)
         nL = c.num_layers
         kv = ("layers", "batch", "seq", "kv_heads", None)
-        return {
+        defs = {
             "k": PD((nL, batch_size, W, c.num_kv_heads, Dh), kv, init="zeros"),
             "v": PD((nL, batch_size, W, c.num_kv_heads, Dh), kv, init="zeros"),
         }
+        if c.encoder_layers:
+            src = c.source_len
+            defs["xk"] = PD((nL, batch_size, src, c.num_kv_heads, Dh), kv, init="zeros")
+            defs["xv"] = PD((nL, batch_size, src, c.num_kv_heads, Dh), kv, init="zeros")
+        return defs
 
     def decode_step(self, params: dict, cache: dict, pos,
                     tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """One-token decode. tokens: (B, 1); pos: an int (tokens already in
         cache), or a (B,) int tensor when continuous batching has each slot
         at its own depth.  Writes the new token's k/v into `cache` in place;
-        returns (logits (B,1,V) f32, cache)."""
+        the audio family cross-attends to the cache's ``xk``/``xv``.
+        Returns (logits (B,1,V) f32, cache)."""
         c = self.cfg
-        self._check_dense()
         x = params["embed"][tokens]
+        if not c.rope_theta:
+            pos_t = torch.as_tensor(pos, device=x.device)
+            if pos_t.dim() >= 1:
+                sin = L.sinusoidal_positions(pos_t.reshape(-1), c.d_model)[:, None, :]
+            else:
+                sin = L.sinusoidal_positions(pos_t.reshape(1), c.d_model)[None]
+            x = x + sin.to(x.dtype)
         ring = c.sliding_window is not None
         blocks = params["blocks"]
         for i in range(c.num_layers):
@@ -278,39 +348,79 @@ class Transformer:
                                          v_cache=cache["v"][i], pos=pos,
                                          ring=ring)
             x = x + a
+            if c.encoder_layers:
+                h = L.rms_norm(x, lp["lnx"], c.norm_eps)
+                x = x + self._cross_decode(lp["xattn"], h, cache["xk"][i],
+                                           cache["xv"][i])
             h = L.rms_norm(x, lp["ln2"], c.norm_eps)
             x = x + self._ffn(lp["ffn"], h)[0]
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
         logits = (x @ self._head(params)).float()
         return logits, cache
 
+    def _cross_decode(self, p: dict, x: torch.Tensor, xk: torch.Tensor,
+                      xv: torch.Tensor) -> torch.Tensor:
+        """One token's cross-attention to the encoder's cached K/V (B, src,
+        KH, Dh): plain f32 products and softmax, as in the JAX package."""
+        dims = self.dims
+        B = x.shape[0]
+        H, KH, Dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+        q = (x @ p["wq"]).reshape(B, 1, KH, H // KH, Dh).float() * Dh ** -0.5
+        s = torch.einsum("bqkgd,bskd->bkgqs", q, xk.float())
+        o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), xv.float())
+        return o.reshape(B, 1, H * Dh).to(x.dtype) @ p["wo"]
+
     def prefill(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """Run the full prompt, build the KV cache, return last-token logits.
 
-        batch["tokens"]: (B, S).  Returns (logits (B,1,V) f32,
-        {"k", "v": (layers, B, W, KH, Dh)})."""
+        batch["tokens"]: (B, S), and the family's stub inputs.  Returns
+        (logits (B,1,V) f32, {"k", "v": (layers, B, W, KH, Dh)}) with W the
+        cache width of the n_prefix + S positions; the audio family adds
+        {"xk", "xv": (layers, B, source_len, KH, Dh)}, each layer's
+        cross-attention K/V of the encoder output."""
         c = self.cfg
-        self._check_dense()
-        tokens = batch["tokens"]
-        x = params["embed"][tokens]
+        enc_out = self._encode(params, batch)
+        x, positions, _ = self._embed_inputs(params, batch)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)
         W = self.cache_width(S)
         blocks = params["blocks"]
-        ks, vs = [], []
+        ks, vs, xks, xvs = [], [], [], []
         for i in range(c.num_layers):
             lp = layer_params(blocks, i)
             h = L.rms_norm(x, lp["ln1"], c.norm_eps)
             q, k, v = L._project_qkv(lp["attn"], h, self.dims, positions)
             attn_out = self._prefill_attn(q, k, v)
             x = x + attn_out.reshape(B, S, -1) @ lp["attn"]["wo"]
+            if enc_out is not None:
+                h = L.rms_norm(x, lp["lnx"], c.norm_eps)
+                a, xk, xv = self._cross_prefill(lp["xattn"], h, enc_out)
+                x = x + a
+                xks.append(xk)
+                xvs.append(xv)
             h = L.rms_norm(x, lp["ln2"], c.norm_eps)
             x = x + self._ffn(lp["ffn"], h)[0]
             ks.append(self._to_ring(k, W, S))
             vs.append(self._to_ring(v, W, S))
         x = L.rms_norm(x[:, -1:, :], params["ln_f"], c.norm_eps)
         logits = (x @ self._head(params)).float()
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if enc_out is not None:
+            cache.update(xk=torch.stack(xks), xv=torch.stack(xvs))
+        return logits, cache
+
+    def _cross_prefill(self, p: dict, h: torch.Tensor, enc_out: torch.Tensor):
+        """Cross-attention of the prompt to the encoder output: (out, xk,
+        xv).  The JAX package's ``attention(kv_x=enc_out)`` (no RoPE: the
+        audio family has none) with its K/V projected once, for both the
+        flash kernel (non-causal) and the cache."""
+        dims = self.dims
+        B, S, _ = h.shape
+        H, KH, Dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+        q = (h @ p["wq"]).reshape(B, S, H, Dh)
+        xk = (enc_out @ p["wk"]).reshape(B, -1, KH, Dh)
+        xv = (enc_out @ p["wv"]).reshape(B, -1, KH, Dh)
+        o = ops.flash_attention(q, xk, xv, causal=False, window=None)
+        return o.reshape(B, S, H * Dh) @ p["wo"], xk, xv
 
     def _prefill_attn(self, q, k, v):
         return ops.flash_attention(q, k, v, causal=self.dims.causal,

@@ -37,7 +37,10 @@ def land_prefill(cache: dict, state: dict) -> dict:
     into the leading corner of its cache leaf, in the cache's dtype (a
     mamba state whole; K/V of the prompt's length into the first S
     positions of the seq dim, so that decoding past S does not meet the
-    clamp of a cache only S long)."""
+    clamp of a cache only S long; the vlm family's K/V hold its patch
+    prefix too, n_prefix + S positions, and the audio family's
+    cross-attention ``xk``/``xv`` fill their leaves whole).  Decode then
+    starts at position n_prefix + S."""
     if set(state) != set(cache):
         raise ValueError(f"prefill state leaves {sorted(state)} are not the "
                          f"cache's {sorted(cache)}")

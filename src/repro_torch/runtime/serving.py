@@ -90,6 +90,13 @@ class ServingEngine:
                 f"ServingEngine serves KV-cache models; {rc.model.name!r} is "
                 f"of the {rc.model.family!r} family, whose decode state is "
                 f"not a KV cache: serve it with Server.generate")
+        if rc.model.family == "vlm":
+            # the reference's engine prefills {"tokens"} alone and fails on
+            # the missing patch embeddings (ROADMAP.md §C 18)
+            raise ValueError(
+                f"ServingEngine prefills token prompts; {rc.model.name!r} is "
+                f"of the 'vlm' family, whose prefill takes patch embeddings "
+                f"too: serve it with Server.generate")
         self.rc = rc
         self.mode = mode
         self.path = path

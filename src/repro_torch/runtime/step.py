@@ -550,8 +550,12 @@ def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,
                      device="cuda") -> StepBundle:
     """kind: "decode" (one token per row against a ``(B, seq_len)`` cache:
     ``fn(params, cache, pos, tokens) -> (logits, cache)``, the cache updated
-    in place) or "prefill" (``fn(params, {"tokens": (B, S)}) -> (logits,
-    cache)``)."""
+    in place; the audio family's cache holds ``xk``/``xv`` too) or
+    "prefill" (``fn(params, batch) -> (logits, cache)``, the batch
+    ``{"tokens": (B, S)}`` with the family's stub inputs as the JAX
+    package's batch template has them: ``patch_embeds`` (B, vision_tokens,
+    d) for the vlm family, ``source_frames`` (B, source_len, d) for the
+    audio family)."""
     kind = kind or rc.shape.kind
     dev = resolve_device(device)
     model = build_model(rc.model)

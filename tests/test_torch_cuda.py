@@ -52,7 +52,8 @@ def _rnd(dev, *shape, dtype=torch.bfloat16, scale=1.0, seed=0):
     (1, 100, 30, 4, 2, 64, None, 1.0),                  # Sq > Sk: 70 rows see no key
     (1, 200, 200, 8, 2, 120, None, 1.0),                # head dim 120 (h2o-danube-3-4b)
     (1, 300, 300, 4, 1, 120, 100, 1.0),                 # head dim 120, window
-    (1, 40, 90, 4, 2, 120, None, 1.0)])                 # head dim 120, query suffix
+    (1, 40, 90, 4, 2, 120, None, 1.0),                  # head dim 120, query suffix
+    (8, 2048, 2048, 32, 8, 128, None, 1.0)])            # pixtral-12b's prefill
 def test_flash_matches_plain(cuda, b, sq, sk, h, kh, d, window, amp):
     q = _rnd(cuda, b, sq, h, d, seed=1, scale=amp)
     k = _rnd(cuda, b, sk, kh, d, seed=2, scale=amp)
@@ -64,6 +65,37 @@ def test_flash_matches_plain(cuda, b, sq, sk, h, kh, d, window, amp):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
     if sq > sk:                      # queries with no valid key give 0
         assert not got[:, :sq - sk].any()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d", [
+    (8, 1500, 1500, 16, 16, 64),         # whisper-medium's encoder
+    (8, 256, 1500, 16, 16, 64),          # its prefill's cross-attention
+    (2, 20, 1500, 16, 16, 64),           # fewer queries than one 64-row tile
+    (1, 1, 1500, 16, 16, 64),            # one query
+    (2, 100, 65, 16, 16, 64),            # a last key tile of one key
+    (2, 64, 1500, 16, 16, 64),           # Sk 1500: a ragged last tile of 28
+    (2, 200, 1500, 32, 8, 128),          # GQA, Sq != Sk
+    (1, 150, 65, 8, 2, 128),             # GQA, Sq > Sk: every row sees every key
+    (2, 77, 300, 4, 1, 32),              # head dim 32
+    (1, 90, 200, 8, 2, 120)])            # head dim 120
+def test_flash_noncausal_matches_plain(cuda, b, sq, sk, h, kh, d):
+    """The forward's non-causal branch (the encoder's self-attention and the
+    decoder's cross-attention): every query sees every key; the key tiles
+    end at Sk, not at the query's position."""
+    q = _rnd(cuda, b, sq, h, d, seed=1)
+    k = _rnd(cuda, b, sk, kh, d, seed=2)
+    v = _rnd(cuda, b, sk, kh, d, seed=3)
+    before = fa.flash_attention_bshd.launches
+    got = fa.flash_attention_bshd(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bshd.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    # through the dispatch, as the model calls it: the kernel, not the plain version
+    got2 = ops.flash_attention(q, k, v, causal=False, window=None)
+    assert fa.flash_attention_bshd.launches == before + 2
+    assert torch.equal(got2, got)
 
 
 def _misaligned(dev, rows, d, dtype):
@@ -82,6 +114,8 @@ def _misaligned(dev, rows, d, dtype):
     *[(r, d, torch.bfloat16, torch.bfloat16, "row")
       for r in (1, 8, 1024) for d in (3072, 5120, 6144)],
     (8, 6144, torch.bfloat16, torch.float32, "row"),
+    (16384, 5120, torch.bfloat16, torch.bfloat16, "row"),   # pixtral-12b's prefill
+    (12000, 1024, torch.bfloat16, torch.bfloat16, "row"),   # whisper's encoder rows
     (4, 6144, torch.float32, torch.float32, "twopass"),      # above the registers
     (8, 3071, torch.bfloat16, torch.bfloat16, "twopass"),    # odd d
     (8, 3072, torch.bfloat16, torch.bfloat16, "misaligned")])

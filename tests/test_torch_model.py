@@ -146,18 +146,6 @@ def test_params_from_jax_keeps_names_layout_and_values(models):
         np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
 
-# the moe, ssm and hybrid families are ported (tests/test_torch_moe.py,
-# test_torch_ssm.py, test_torch_hybrid.py); the encoder and the vision stub
-# are not
-@pytest.mark.parametrize("arch", ["whisper-medium", "pixtral-12b"])
-def test_unported_families_raise_naming_the_roadmap(arch):
-    cfg = pt_smoke_config(pt_get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model = pt_build_model(cfg)
-        model.prefill(tree_init(model.param_defs(), 0, device="cpu"),
-                      {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-
-
 def test_tree_init_is_seeded_and_on_the_device(models):
     _, pm, _ = models
     a = tree_init(pm.param_defs(), 3, device="cpu")
