@@ -17,15 +17,20 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             block under 64 rows, a one-key last tile and GQA with
             Sq != Sk; the flash backward at the
             llama3.2-3b, qwen1.5-0.5b and danube shapes, causal and
-            windowed), with times (CUDA events), the bound and a PyTorch
+            windowed, and at the families' training shapes: whisper's
+            encoder and cross-attention not causal, Sq != Sk), with times (CUDA events), the bound and a PyTorch
             library call as a yardstick where one exists (SDPA; with a
             dense boolean mask for a window), and the launch floor (an
             empty kernel, timed the same way); the backward's device time
             split into its delta, dK/dV and dQ kernels (torch.profiler),
             with each one's registers and shared memory;
 4. small    the port on the card against the port on the CPU (plain
-            versions) at smoke size: prefill and decode logits, and one
-            training step's loss and gradients;
+            versions) at smoke size: prefill and decode logits, and a
+            3-step training run's losses, gradients and first update, for
+            llama3.2-3b and for each family's smoke config (mamba2,
+            zamba2 and phi3.5-moe in f32 with attention's plain version,
+            whisper-medium and pixtral-12b in bf16 through the flash
+            forward and backward);
 5. engine   full-width llama3.2-3b (random weights from seed 0) serving 16
             seeded requests with continuous batching, three ways: mono,
             disagg over the London-Poznan WAN path, and disagg with the int8
@@ -46,9 +51,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             (counts reset in each rank just before it trains); step ms,
             tokens/s per pod, sync ms, wire bytes and peak memory per rank,
             and one profiled int8 step.  The three codecs run one after the
-            other in one spawn of the ranks (``launch.train.main_runs``), as
-            do the codecs or algorithms of the zero, buckets and ring phases;
-8. zero     the same launcher on 2 pods x 2 data ranks, four processes on
+            other through the launcher's per-rank entry
+            (``launch.train.train_runs``) at the start of the 2 x 1 spawn
+            that the families_train phase's families then share, as the
+            zero and buckets phases' runs start its 2 x 2 spawn; the ring
+            phase's run in a spawn of the launcher's own
+            (``launch.train.main_runs``);
+8. zero     the same launcher on 2 pods x 2 data ranks at 6 of qwen's 24
+            layers (``--layers``, ZERO_LAYERS), four processes on
             the card, ZeRO-3 (parameters and moments scattered over each
             pod's data ranks, weights gathered at use, gradients
             reduce-scattered in the backward, the 1/2 shards across pods),
@@ -161,7 +171,23 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             prompt tokens and 16 decode steps, within 1e-2 relative L2; the
             smoke config's prefill logits card against CPU within 5e-2.
             Tokens/s, encoder and prefill ms, decode ms per token, peak
-            memory and launches per arch.
+            memory and launches per arch;
+20. families_train (run after families) ``build_train_step`` on 2 pods x
+            1 data rank, two processes sharing the card, every family in
+            turn in one spawn (after the train phase's runs; the spawn's
+            allocator has expandable segments) at published width (FAMILY_TRAIN_RUNS; depths
+            from tools/train_family_memory.py): mamba2-780m, zamba2-1.2b
+            and phi3.5-moe (4096 tokens a pod), whisper-medium (8 x 448
+            tokens over 8 x 1500 frames a pod, with no codec and with
+            int8), pixtral-12b (1024 patches and 3072 tokens a pod), 3
+            steps each over the hierarchical psum; then whisper-medium on
+            2 x 2 ZeRO-3 (four processes).  Finite losses and grad norms
+            (the MoE aux loss above 0), the pods bit-identical after every
+            step (under ZeRO each data index's shards), chunks and wire
+            bytes the plan's, rmsnorm and the flash forward and backward
+            launched at the path's count every step
+            (``family_train_launches``); step, sync ms, tokens/s per pod,
+            wire bytes and peak memory per rank.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -188,7 +214,7 @@ PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
 PHASES = ("env", "build", "kernels", "small", "engine", "serve_chaos", "profile",
-          "families", "train", "zero", "buckets", "ring", "sites", "autotune", "route", "ckpt",
+          "families", "families_train", "train", "zero", "buckets", "ring", "sites", "autotune", "route", "ckpt",
           "facade", "chaos", "elastic")
 CODECS = ("none", "bf16", "int8")
 
@@ -506,71 +532,95 @@ def causal_pairs(torch, dev, Sq: int, Sk: int, window) -> int:
     return int(window_mask(torch, dev, Sq, Sk, window).sum())
 
 
+# the flash backward's cases: (B, Sq, Sk, H, KH, D, window, causal, path)
+FLASH_BWD_CASES = [
+    (1, 4096, 4096, 16, 16, 64, None, True, "train"),
+    (1, 4096, 4096, 16, 16, 64, 1024, True, "shape of another model"),
+    (1, 1024, 1024, 24, 8, 128, None, True, "shape of another model"),
+    (1, 1024, 1024, 24, 8, 128, 256, True, "shape of another model"),
+    (1, 1024, 1024, 32, 8, 120, None, True, "shape of another model"),
+    (1, 1024, 1024, 32, 8, 120, 256, True, "shape of another model"),
+    # the families' training steps (families_train): whisper-medium's
+    # encoder (not causal, 1500 frames: a last key tile of 28), its
+    # decoder's cross-attention (448 tokens to 1500 frames, not causal) and
+    # causal self-attention, zamba2-1.2b's shared block, phi3.5-moe's and
+    # pixtral-12b's attention (32 over 8 heads of 128; pixtral's 1024
+    # patches and 3072 tokens), and a query block under one 64-row tile
+    (8, 1500, 1500, 16, 16, 64, None, False, "families_train"),
+    (8, 448, 1500, 16, 16, 64, None, False, "families_train"),
+    (8, 448, 448, 16, 16, 64, None, True, "families_train"),
+    (1, 4096, 4096, 32, 32, 64, None, True, "families_train"),
+    (1, 4096, 4096, 32, 8, 128, None, True, "families_train"),
+    (2, 40, 333, 16, 16, 64, None, False, "check"),
+]
+
+
 def phase_kernels_flash_bwd(torch, dev, rnd) -> list:
     """The flash backward against autograd through the plain version, at
-    the training shapes: qwen1.5-0.5b (16 heads, head dim 64, 4096 tokens,
-    the train phase's), llama3.2-3b (24 over 8, 128) and h2o-danube-3-4b
-    (32 over 8, 120) at 1024 tokens, each causal and with a window.
+    FLASH_BWD_CASES: qwen1.5-0.5b's training shape (16 heads, head dim 64,
+    4096 tokens, the train phase's), llama3.2-3b (24 over 8, 128) and
+    h2o-danube-3-4b (32 over 8, 120) at 1024 tokens, each causal and with a
+    window; the families' training shapes, whisper-medium's not causal with
+    Sq != Sk among them; a not-causal query block under 64 rows.
     Tolerance: each gradient elementwise within 2 % of its largest entry
     plus 2 % of the entry (bf16 output, P and dS rounded to bf16 before the
     products, delta from the bf16 output, sums in another order).  Bound:
-    the forward's causal operations times 2.5 (five products against two)
-    at the bf16 peak, against the bytes of q, k, v, o, dO, lse read once and
-    dq, dk, dv written once.  Library: SDPA forward + backward minus SDPA
-    forward, at the same shape; a window as a dense boolean mask.  Parts:
-    each of the backward's three kernels' device time from torch.profiler
-    over back-to-back calls."""
+    five products of 2·D operations per visible (query, key) pair at the
+    bf16 peak, against the bytes of q, k, v, o, dO, lse read once and dq,
+    dk, dv written once.  Library: SDPA forward + backward minus SDPA
+    forward, at the same shape (``is_causal`` as the case has it,
+    ``enable_gqa``); a window as a dense boolean mask.  Parts: each of the
+    backward's three kernels' device time from torch.profiler over
+    back-to-back calls."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     F = torch.nn.functional
 
-    def plain_grads(q, k, v, do, window):
+    def plain_grads(q, k, v, do, window, causal):
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o = ref.flash_attention_ref(qs, ks, vs, causal=True, window=window)
+        o = ref.flash_attention_ref(qs, ks, vs, causal=causal, window=window)
         return torch.autograd.grad(o, (qs, ks, vs), do)
 
     out = []
-    cases = [(1, 4096, 16, 16, 64, None), (1, 4096, 16, 16, 64, 1024),
-             (1, 1024, 24, 8, 128, None), (1, 1024, 24, 8, 128, 256),
-             (1, 1024, 32, 8, 120, None), (1, 1024, 32, 8, 120, 256)]
-    for B, S, H, KH, D, window in cases:
-        pairs = causal_pairs(torch, dev, S, S, window)
-        nbytes = 2 * 4 * (B * S * H * D + B * S * KH * D) + 4 * B * H * S
+    for B, Sq, Sk, H, KH, D, window, causal, on in FLASH_BWD_CASES:
+        pairs = causal_pairs(torch, dev, Sq, Sk, window) if causal else Sq * Sk
+        nbytes = 2 * 4 * (B * Sq * H * D + B * Sk * KH * D) + 4 * B * H * Sq
         k_sets = sets_for(nbytes)
         sets = []
         for _ in range(k_sets):
-            q, k, v = rnd(B, S, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D)
-            do = rnd(B, S, H, D)
-            o, lse = fa.flash_attention_bshd(q, k, v, causal=True, window=window,
+            q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, KH, D), rnd(B, Sk, KH, D)
+            do = rnd(B, Sq, H, D)
+            o, lse = fa.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                              return_lse=True)
             sets.append((q, k, v, o, lse, do))
-        got = fa.flash_attention_bwd_bshd(*sets[0], causal=True, window=window)
+        got = fa.flash_attention_bwd_bshd(*sets[0], causal=causal, window=window)
         q, k, v, _, _, do = sets[0]
-        want = plain_grads(q, k, v, do, window)
+        want = plain_grads(q, k, v, do, window, causal)
+        case = (B, Sq, Sk, H, KH, D, window, causal)
         err, rel = 0.0, 0.0
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             d = (g.float() - w.float()).abs()
             top = float(w.float().abs().max())
-            check(bool(torch.isfinite(g).all()), f"flash bwd {name} finite")
+            check(bool(torch.isfinite(g).all()), f"flash bwd {case} {name} finite")
             check(bool((d <= 2e-2 * top + 2e-2 * w.float().abs()).all()),
-                  f"flash bwd {(B, S, H, KH, D, window)} {name}: max err "
+                  f"flash bwd {case} {name}: max err "
                   f"{float(d.max())} against largest entry {top}")
             err, rel = max(err, float(d.max())), max(rel, float(d.max()) / top)
         del got, want
-        e = {"on_path": "train" if S == 4096 else "shape of another model",
-             "shape": {"B": B, "Sq": S, "Sk": S, "H": H, "KH": KH, "D": D,
-                       "causal": True, "window": window},
+        e = {"on_path": on,
+             "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KH": KH, "D": D,
+                       "causal": causal, "window": window},
              "max_abs_err": err, "max_err_over_largest": rel,
              "ms": cuda_ms(torch, lambda i: fa.flash_attention_bwd_bshd(
-                 *sets[i], causal=True, window=window), k_sets, 20),
+                 *sets[i], causal=causal, window=window), k_sets, 20),
              "plain_ms": cuda_ms(torch, lambda i: plain_grads(
-                 *[sets[i][j] for j in (0, 1, 2, 5)], window), k_sets, 3)}
-        mask = None if window is None else window_mask(torch, dev, S, S, window)
-        t_fb, t_f = sdpa_bwd_ms(torch, F, sets, k_sets, mask)
+                 *[sets[i][j] for j in (0, 1, 2, 5)], window, causal), k_sets, 3)}
+        mask = None if window is None else window_mask(torch, dev, Sq, Sk, window)
+        t_fb, t_f = sdpa_bwd_ms(torch, F, sets, k_sets, mask, causal)
         e["library_ms"] = t_fb - t_f
         e["library_fwd_bwd_ms"], e["library_fwd_ms"] = t_fb, t_f
         e["parts_ms"] = bwd_parts_ms(torch, lambda i: fa.flash_attention_bwd_bshd(
-            *sets[i], causal=True, window=window), k_sets, 20)
+            *sets[i], causal=causal, window=window), k_sets, 20)
         e["resources"] = fa.bwd_resources(D)
         e["bound_ms"], e["bound_by"] = bound(nbytes, 2.5 * 4 * D * H * B * pairs,
                                              PEAK_BF16)
@@ -581,15 +631,16 @@ def phase_kernels_flash_bwd(torch, dev, rnd) -> list:
     return out
 
 
-def sdpa_bwd_ms(torch, F, sets, n_sets: int, mask):
+def sdpa_bwd_ms(torch, F, sets, n_sets: int, mask, causal: bool = True):
     """(forward + backward ms, forward ms) of SDPA on the inputs of `sets`:
-    causal, or with the dense boolean `mask` (enable_gqa only where the
-    heads differ, as in `phase_kernels`' forward)."""
+    causal (``is_causal``) or not, or with the dense boolean `mask`
+    (enable_gqa only where the heads differ, as in `phase_kernels`'
+    forward)."""
     lib = []
     for q, k, v, _, _, do in sets:
         qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         lib.append((qg, kg, vg, do.transpose(1, 2)))
-    kw = dict(is_causal=True, enable_gqa=True) if mask is None else dict(
+    kw = dict(is_causal=causal, enable_gqa=True) if mask is None else dict(
         attn_mask=mask, enable_gqa=sets[0][0].shape[2] != sets[0][1].shape[2])
 
     def fwd(i):
@@ -661,12 +712,39 @@ def phase_small(torch, dev) -> dict:
             # bf16 end to end on both sides, rounded at other places
             check(errs[what] <= 5e-2, f"small {what} logits vs CPU: {errs[what]}")
     return {"max_abs_err": errs, "tolerance": 5e-2, "config": cfg.name,
-            "train_step": phase_small_train(torch, dev, cfg, model, p_cpu)}
+            "train_step": phase_small_train(torch, dev, cfg, model, p_cpu),
+            "train_families": phase_small_train_families(torch, dev)}
 
 
 # leaves whose gradients the small phase compares
 GRAD_LEAVES = (("embed",), ("blocks", "attn", "wq"), ("blocks", "attn", "wo"),
                ("blocks", "ffn", "down"), ("blocks", "ln1"), ("ln_f",))
+_SSM_LEAVES = (("embed",), ("blocks", "w_x"), ("blocks", "w_B"), ("blocks", "w_out"),
+               ("blocks", "A"), ("blocks", "ln"), ("ln_f",))
+# the other families' smoke training runs: (arch, parameter dtype, leaves,
+# kernels the card's run must launch).  The ssm, hybrid and moe families run
+# in f32 with attention's plain version (the flash kernel takes bf16 only):
+# in bf16 their gradients are rounding-dominated (the ssm blocks' pre-norm
+# amplifies the embeddings ~50x a layer, the MoE router flips experts at
+# near ties), so two correct runs that round at other places disagree far
+# beyond the bounds; tests/test_torch_train_families_pods.py measures it
+# against the JAX package.  The audio and vlm families run in bf16 through
+# the flash forward and backward (whisper's encoder and cross-attention not
+# causal, Sq != Sk).
+SMALL_TRAIN_FAMILIES = (
+    ("mamba2-780m", "float32", _SSM_LEAVES, ("rmsnorm",)),
+    ("zamba2-1.2b", "float32", _SSM_LEAVES + (("shared", "attn", "wq"),
+                                              ("shared", "ffn", "down")), ("rmsnorm",)),
+    ("phi3.5-moe-42b-a6.6b", "float32",
+     (("embed",), ("blocks", "attn", "wq"), ("blocks", "ffn", "router"),
+      ("blocks", "ffn", "down"), ("blocks", "ln1"), ("ln_f",)), ("rmsnorm",)),
+    ("whisper-medium", "bfloat16",
+     GRAD_LEAVES + (("blocks", "xattn", "wk"), ("encoder", "attn", "wq"),
+                    ("encoder", "ffn", "down")),
+     ("flash_attention", "flash_attention_bwd", "rmsnorm")),
+    ("pixtral-12b", "bfloat16", GRAD_LEAVES,
+     ("flash_attention", "flash_attention_bwd", "rmsnorm")),
+)
 
 
 # AdamW's step moves an element by lr * (m_hat / sqrt(v_hat) + wd * p).  After
@@ -688,9 +766,14 @@ def _ulp(torch, x):
     return torch.exp2(torch.floor(torch.log2(a))) * fi.eps
 
 
-def phase_small_train(torch, dev, cfg, model, p_cpu) -> dict:
+def phase_small_train(torch, dev, cfg, model, p_cpu, leaves=GRAD_LEAVES,
+                      expect=("flash_attention", "flash_attention_bwd", "rmsnorm"),
+                      plain_attn: bool = False) -> dict:
     """One smoke-size training run (1 pod, 3 steps) on the card against the
-    same run on the CPU, from the same parameters and tokens.
+    same run on the CPU, from the same parameters and tokens (and the
+    family's stub inputs, seeded, in the parameters' dtype).  `leaves`: the
+    leaves compared; `expect`: the kernels the card's run must launch;
+    `plain_attn`: attention's plain version on the card (f32 runs).
 
     Compared: the gradients of a few leaves at the initial parameters; the
     losses of the three steps (the first has lr 0 and steps 1 and 2 take
@@ -714,11 +797,23 @@ def phase_small_train(torch, dev, cfg, model, p_cpu) -> dict:
     tc = TrainConfig(warmup_steps=1, total_steps=10, lr=1e-3)
     rc = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
                    comm=CommConfig(), train=tc)
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(3, 4, 65))
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 4, 65))
+    stub_np = {}
+    if cfg.vision_tokens:
+        stub_np["patch_embeds"] = rng.standard_normal((3, 4, cfg.vision_tokens, cfg.d_model))
+    if cfg.encoder_layers:
+        stub_np["source_frames"] = rng.standard_normal((3, 4, cfg.source_len, cfg.d_model))
+    dtype = p_cpu["embed"].dtype
+
+    def batch_of(i, d):
+        return {"tokens": torch.as_tensor(toks[i], device=d),
+                **{k: torch.as_tensor(v[i], dtype=torch.float32).to(d, dtype)
+                   for k, v in stub_np.items()}}
 
     def pick(tree):
         out = []
-        for keys in GRAD_LEAVES:
+        for keys in leaves:
             t = tree
             for k in keys:
                 t = t[k]
@@ -728,55 +823,76 @@ def phase_small_train(torch, dev, cfg, model, p_cpu) -> dict:
     res = {}
     for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
         params = _to(p_cpu, d)
-        batch = {"tokens": torch.as_tensor(toks[0], device=d)}
-        leaves, td = flatten(params)
-        ps = [p.detach().requires_grad_(True) for p in leaves]
-        loss, _ = model.loss(unflatten(td, ps), batch)
-        grads = unflatten(td, list(torch.autograd.grad(loss, ps)))
-        b = build_train_step(rc, make_local_mesh(pod=1, device=d))
-        state = {"params": params, "opt": init_opt_state(params)}
-        ops.reset_launch_counts()
-        losses = []
-        for i in range(3):
-            state, m = b.fn(state, {"tokens": torch.as_tensor(toks[i], device=d)})
-            losses.append(float(m["loss"]))
-            if i == 1:
-                after = pick(state["params"])
+        p_leaves, td = flatten(params)
+        ps = [p.detach().requires_grad_(True) for p in p_leaves]
+        with plain_attention() if plain_attn else contextlib.nullcontext():
+            loss, _ = model.loss(unflatten(td, ps), batch_of(0, d))
+            grads = unflatten(td, list(torch.autograd.grad(loss, ps)))
+            b = build_train_step(rc, make_local_mesh(pod=1, device=d))
+            state = {"params": params, "opt": init_opt_state(params)}
+            ops.reset_launch_counts()
+            losses = []
+            for i in range(3):
+                state, m = b.fn(state, batch_of(i, d))
+                losses.append(float(m["loss"]))
+                if i == 1:
+                    after = pick(state["params"])
         res[name] = {"losses": losses, "grads": [g.float() for g in pick(grads)],
                      "params": after, "launches": ops.launch_counts()}
     g, c = res["gpu"], res["cpu"]
     lg = g["launches"]
-    check(lg["flash_attention"] > 0 and lg["flash_attention_bwd"] > 0
-          and lg["rmsnorm"] > 0, f"small train step launched the kernels: {lg}")
+    check(all(lg[k] > 0 for k in expect),
+          f"{cfg.name}: small train step launched the kernels {expect}: {lg}")
     loss_err = max(abs(a - b) for a, b in zip(g["losses"], c["losses"]))
     check(all(math.isfinite(x) for x in g["losses"]) and loss_err <= 2e-2,
-          f"small train step losses {g['losses']} vs CPU {c['losses']}")
+          f"{cfg.name}: small train step losses {g['losses']} vs CPU {c['losses']}")
     errs = {}
-    for keys, a, b in zip(GRAD_LEAVES, g["grads"], c["grads"]):
+    for keys, a, b in zip(leaves, g["grads"], c["grads"]):
         e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-        check(e <= 5e-2, f"small train grad {'/'.join(keys)}: {e}")
+        check(e <= 5e-2, f"{cfg.name}: small train grad {'/'.join(keys)}: {e}")
         errs["grad/" + "/".join(keys)] = e
     p0 = pick(p_cpu)
-    for keys, a, b, x0 in zip(GRAD_LEAVES, g["params"], c["params"], p0):
+    for keys, a, b, x0 in zip(leaves, g["params"], c["params"], p0):
         name = "/".join(keys)
         diff = (a.float() - b.float()).abs()
         limit = ADAM_STEP2_SPREAD * tc.lr + _ulp(torch, torch.maximum(a.abs(), b.abs()))
         worst = float((diff / limit).max())
-        check(worst <= 1.0, f"small train param {name} after the first update: "
-              f"|card - CPU| reaches {worst} of its limit")
+        check(worst <= 1.0, f"{cfg.name}: small train param {name} after the first "
+              f"update: |card - CPU| reaches {worst} of its limit")
         moved = float((b.float() - x0.float()).abs().mean())
         share = (float(diff.mean()) / moved if moved > 0
                  else 0.0 if float(diff.max()) == 0 else math.inf)
-        check(share <= UPDATE_SHARE, f"small train param {name} after the first "
-              f"update: mean |card - CPU| is {share} of the update's mean size")
+        check(share <= UPDATE_SHARE, f"{cfg.name}: small train param {name} after "
+              f"the first update: mean |card - CPU| is {share} of the update's mean size")
         errs["param/" + name] = {"worst_over_limit": worst, "share_of_update": share,
                                  "update_mean_abs": moved}
-    return {"losses_gpu": g["losses"], "losses_cpu": c["losses"],
+    return {"config": cfg.name, "dtype": str(dtype).removeprefix("torch."),
+            "losses_gpu": g["losses"], "losses_cpu": c["losses"],
             "loss_max_abs_err": loss_err, "errors": errs,
             "launches_gpu": lg,
             "tolerance": {"loss": 2e-2, "grad": 5e-2,
                           "param": f"{ADAM_STEP2_SPREAD} * lr + 1 ulp per element; "
                                    f"mean {UPDATE_SHARE} of the update per leaf"}}
+
+
+def phase_small_train_families(torch, dev) -> dict:
+    """:func:`phase_small_train` for each of SMALL_TRAIN_FAMILIES' smoke
+    configs, at the dense run's tolerances: parameters from seed 0 in the
+    family's dtype (f32 draws cast)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_init
+    out = {}
+    for arch, dtype, leaves, expect in SMALL_TRAIN_FAMILIES:
+        cfg = smoke_config(get_config(arch))
+        model = build_model(cfg)
+        p_cpu = tree_init(model.param_defs(), 0, device="cpu")
+        if dtype == "float32":
+            p_cpu = tree_map(lambda t: t.float(), p_cpu)
+        out[arch] = phase_small_train(torch, dev, cfg, model, p_cpu, leaves, expect,
+                                      plain_attn=dtype == "float32")
+    return out
 
 
 def _to(tree, dev):
@@ -1177,10 +1293,15 @@ TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--global-batch",
               "--steps", "3", "--pods", "2", "--mode", "hierarchical",
               "--check-replicas"]
 PROFILE_STEP = 3     # the int8 run takes a fourth step, under the profiler
-# 2 pods x 2 data ranks, ZeRO-3 (zero1 is on by default): one sequence a rank
+# 2 pods x 2 data ranks, ZeRO-3 (zero1 is on by default): one sequence a rank.
+# The zero and buckets phases run 6 of qwen's 24 layers (published widths;
+# 232,684,544 parameters, the embedding whole): at 24 the script took
+# 1095.3 s, over its 1020 s budget (PERF.md section 4); 64 MB buckets still
+# cut the layers into 3 buckets and a rest
+ZERO_LAYERS = 6
 ZERO_ARGS = ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--global-batch", "4",
              "--steps", "3", "--pods", "2", "--ranks", "4", "--mode", "hierarchical",
-             "--check-replicas"]
+             "--check-replicas", "--layers", str(ZERO_LAYERS)]
 ZERO_CODECS = ("none", "int8")
 BUCKET_MB = 64.0     # a point of the reference's BUCKET_GRID_MB
 FLUSH_LOSS_TOL = 1e-3
@@ -1210,19 +1331,31 @@ def ring_calls(sizes: list, world: int, algo: str) -> tuple[int, dict]:
     return dirs, calls
 
 
+def _launcher_argv(runs: list, out_dir: str) -> list:
+    """(argv, comm) of each of `runs`, ``(codec, argv, label, comm)`` (`comm`:
+    the launcher's CommConfig keyword), with the codec and the report path
+    (``{out_dir}/{label}_{codec}``) added."""
+    return [(argv + ["--compress", codec, "--report",
+                     os.path.join(out_dir, f"{label}_{codec}")], comm)
+            for codec, argv, label, comm in runs]
+
+
+def _checked_runs(runs: list, out_dir: str) -> list:
+    """The numbers of each of `runs` (see :func:`_launcher_argv`), its
+    reports checked by :func:`_check_run`."""
+    return [_check_run(codec, os.path.join(out_dir, f"{label}_{codec}"), label)
+            for codec, _, label, _ in runs]
+
+
 def _train_runs(runs: list, out_dir: str) -> tuple[list, float]:
-    """``launch.train.main_runs`` of `runs`, each ``(codec, argv, label,
-    comm)`` (`comm`: the launcher's CommConfig keyword), in one spawn of the
-    ranks; each run's reports checked by :func:`_check_run`.  Returns the
-    runs' numbers and the spawn's wall seconds."""
+    """``launch.train.main_runs`` of `runs` in one spawn of the ranks, then
+    :func:`_checked_runs`.  Returns the runs' numbers and the spawn's wall
+    seconds."""
     from repro_torch.launch import train as launcher
-    reps = [os.path.join(out_dir, f"{label}_{codec}") for codec, _, label, _ in runs]
     t0 = time.perf_counter()
-    launcher.main_runs([(argv + ["--compress", codec, "--report", rep], comm)
-                        for (codec, argv, _, comm), rep in zip(runs, reps)])
+    launcher.main_runs(_launcher_argv(runs, out_dir))
     wall = time.perf_counter() - t0
-    return [_check_run(codec, rep, label)
-            for (codec, _, label, _), rep in zip(runs, reps)], wall
+    return _checked_runs(runs, out_dir), wall
 
 
 def _check_run(codec: str, rep: str, label: str) -> dict:
@@ -1353,36 +1486,51 @@ def _check_run(codec: str, rep: str, label: str) -> dict:
     return out
 
 
-def phase_train(torch, out_dir: str) -> dict:
-    """``python -m repro_torch.launch.train`` on 2 pods x 1 data rank (two
-    spawned processes), full-width qwen1.5-0.5b at 4096 tokens a pod, 3 steps
-    with each wire codec; the int8 run takes a fourth step, which rank 0 runs
-    under torch.profiler.  Each rank resets the kernel counts just before it
-    trains and reports them after (:func:`_check_run` checks every run)."""
+def train_specs() -> list:
+    """The train phase's runs (:func:`_launcher_argv`): each codec, the int8
+    run with a fourth, profiled step."""
     specs = []
     for codec in CODECS:
         argv = list(TRAIN_ARGS)
         if codec == "int8":
             argv += ["--steps", str(PROFILE_STEP + 1), "--profile-step", str(PROFILE_STEP)]
         specs.append((codec, argv, "train", None))
-    done, spawn_s = _train_runs(specs, out_dir)
-    runs = dict(zip(CODECS, done))
+    return specs
+
+
+def zero_specs() -> list:
+    return [(c, ZERO_ARGS, "zero", None) for c in ZERO_CODECS]
+
+
+def bucket_specs() -> list:
+    from repro_torch.configs import CommConfig
+    return [(c, ZERO_ARGS, "buckets",
+             CommConfig(mode="hierarchical", compress=c, bucket_mb=BUCKET_MB))
+            for c in ZERO_CODECS]
+
+
+def phase_train(torch, out_dir: str) -> dict:
+    """The launcher (``launch.train.train_runs``, the per-rank entry of
+    ``python -m repro_torch.launch.train``) on 2 pods x 1 data rank, full-width
+    qwen1.5-0.5b at 4096 tokens a pod, 3 steps with each wire codec; the int8
+    run takes a fourth step, which rank 0 runs under torch.profiler.  Each
+    rank resets the kernel counts just before it trains and reports them
+    after.  The runs ran in :func:`phase_families_train`'s 2 x 1 spawn;
+    this checks their reports (:func:`_check_run`)."""
+    runs = dict(zip(CODECS, _checked_runs(train_specs(), out_dir)))
     for codec in CODECS:
         emit({"phase": "train", "mesh": "2x1", "codec": codec, **runs[codec]})
-    emit({"phase": "train_spawn", "runs": list(CODECS), "spawn_s": spawn_s})
     return runs
 
 
 def phase_zero(torch, out_dir: str) -> dict:
-    """The same launcher on 2 pods x 2 data ranks (four spawned processes on
-    the one card), ZeRO-3, one 4096-token sequence a rank, 3 steps with no
-    codec and with int8 (:func:`_check_run` checks every run)."""
-    done, spawn_s = _train_runs([(c, ZERO_ARGS, "zero", None) for c in ZERO_CODECS],
-                                out_dir)
-    runs = dict(zip(ZERO_CODECS, done))
+    """The same launcher on 2 pods x 2 data ranks (four processes on the one
+    card), ZeRO-3, one 4096-token sequence a rank, 3 steps with no codec and
+    with int8.  The runs ran in :func:`phase_families_train`'s 2 x 2 spawn;
+    this checks their reports (:func:`_check_run`)."""
+    runs = dict(zip(ZERO_CODECS, _checked_runs(zero_specs(), out_dir)))
     for codec in ZERO_CODECS:
         emit({"phase": "zero", "mesh": "2x2", "codec": codec, **runs[codec]})
-    emit({"phase": "zero_spawn", "runs": list(ZERO_CODECS), "spawn_s": spawn_s})
     return runs
 
 
@@ -1393,12 +1541,9 @@ def phase_buckets(torch, out_dir: str, zero: dict) -> dict:
     (`zero`): the flush run's step-1 loss bit-identical, steps 2-3 within
     FLUSH_LOSS_TOL (the hook rounds each synced block gradient to bf16 once
     more, as the reference's does); the tail run's parameter checksums equal
-    at every step on every rank."""
-    from repro_torch.configs import CommConfig
-    done, spawn_s = _train_runs(
-        [(c, ZERO_ARGS, "buckets",
-          CommConfig(mode="hierarchical", compress=c, bucket_mb=BUCKET_MB))
-         for c in ZERO_CODECS], out_dir)
+    at every step on every rank.  The runs ran after the zero phase's in
+    :func:`phase_families_train`'s 2 x 2 spawn."""
+    done = _checked_runs(bucket_specs(), out_dir)
     runs = {}
     for codec, r in zip(ZERO_CODECS, done):
         z = zero[codec]
@@ -1421,7 +1566,6 @@ def phase_buckets(torch, out_dir: str, zero: dict) -> dict:
         runs[codec] = r
         emit({"phase": "buckets", "mesh": "2x2", "codec": codec, "mode": mode,
               **{k: v for k, v in r.items() if k != "chunk_sizes_step1"}})
-    emit({"phase": "buckets_spawn", "runs": list(ZERO_CODECS), "spawn_s": spawn_s})
     return runs
 
 
@@ -1549,9 +1693,10 @@ def _trainer_rc(spec: dict, n_pods: int, steps: int, comm):
                                        warmup_steps=max(steps // 10, 1)))
 
 
-def _rank_setup(torch, rank: int, world: int, init: str, spec: dict, pods: int):
-    """Join the gloo world and build the mesh of `pods` pods x 1 data rank
-    on this rank's device (the ranks share the card)."""
+def _rank_setup(torch, rank: int, world: int, init: str, spec: dict, pods: int,
+                data: int = 1):
+    """Join the gloo world and build the mesh of `pods` pods x `data` data
+    ranks on this rank's device (the ranks share the card)."""
     import datetime
     import resource
     import torch.distributed as dist
@@ -1568,7 +1713,7 @@ def _rank_setup(torch, rank: int, world: int, init: str, spec: dict, pods: int):
     if spec["device"] != "cpu":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    return dist, dev, make_local_mesh(pod=pods, device=dev, timeout=timeout)
+    return dist, dev, make_local_mesh(pod=pods, data=data, device=dev, timeout=timeout)
 
 
 def _run_record(torch, tr, dev, hist, launches) -> dict:
@@ -2618,6 +2763,21 @@ def _monitor(topo):
                         recover_after=2)
 
 
+@contextlib.contextmanager
+def expandable_segments():
+    """``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` for the processes
+    spawned inside (the ranks' caches share the card)."""
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+
+
 def _free(torch, dev) -> None:
     """Release what a finished run left cached: device blocks, and the
     pinned host blocks of its host copies (PyTorch's caching host allocator
@@ -3156,19 +3316,14 @@ def phase_chaos_elastic(torch, out_dir: str, names=("chaos", "elastic"),
         os.makedirs(os.path.join(home, name))
     watch = _MemWatch("chaos_elastic")
     # four ranks' caches share the card: the delta syncs' f32 buffers must
-    # reuse each rank's cached activation memory (read by the spawned ranks)
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    # reuse each rank's cached activation memory
     try:
-        reps = _spawn(torch, _slice10_rank, 4, out_dir,
-                      dict(spec, home=home, runs=list(names)), "slice10")
+        with expandable_segments():
+            reps = _spawn(torch, _slice10_rank, 4, out_dir,
+                          dict(spec, home=home, runs=list(names)), "slice10")
     finally:
         watch.stop()
         shutil.rmtree(home, ignore_errors=True)
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     out = {"spawn_s": time.perf_counter() - t0}
     checks = {"chaos": check_chaos, "elastic": check_elastic}
     for name in names:
@@ -3882,6 +4037,282 @@ def phase_families(torch, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# families_train: the ssm, hybrid, moe, audio and vlm families' training step
+# across 2 pods
+# ---------------------------------------------------------------------------
+
+FAMILY_TRAIN_STEPS = 3
+# one run a family at published width and, where two ranks' peaks would
+# outgrow ~72 GB of the card, fewer layers: (name, arch, layers, encoder
+# layers, seq_len, global batch, codec); None keeps the published depth.
+# The depths come from tools/train_family_memory.py (each family's peak a
+# rank at two depths, extrapolated per layer; PERF.md section 4): phi3.5-moe
+# takes 29.9 GB a rank at 1 layer and does not fit 2, pixtral-12b 31.8 GB at
+# 1 layer and 36.8 at 2.  4096 tokens a pod for mamba2, zamba2 and
+# phi3.5-moe; 8 sequences of whisper's 448-token context a pod over 1500
+# frames each; one pixtral sequence a pod of 1024 patch embeddings and 3072
+# tokens
+FAMILY_TRAIN_RUNS = (
+    ("mamba2-780m", "mamba2-780m", None, None, 4096, 2, "none"),
+    ("zamba2-1.2b", "zamba2-1.2b", None, None, 4096, 2, "none"),
+    ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b", 1, None, 4096, 2, "none"),
+    ("whisper-medium", "whisper-medium", None, None, 448, 16, "none"),
+    ("whisper-medium-int8", "whisper-medium", None, None, 448, 16, "int8"),
+    ("pixtral-12b", "pixtral-12b", 1, None, 3072, 2, "none"),
+)
+# the audio family under 2 x 2 ZeRO-3 (four ranks; the encoder's layers
+# gathered one by one inside their checkpoints), at 6 + 6 of its 24 + 24
+# layers: its in-pod stages make a step ~16 s at full depth
+FAMILY_ZERO_RUN = ("whisper-medium-zero", "whisper-medium", 6, 6, 448, 16, "none")
+
+
+def _family_run(row) -> dict:
+    name, arch, layers, enc, seq, gb, codec = row
+    return {"name": name, "arch": arch, "layers": layers, "encoder_layers": enc,
+            "seq_len": seq, "global_batch": gb, "codec": codec,
+            "steps": FAMILY_TRAIN_STEPS}
+
+
+def family_train_config(run: dict):
+    """The run's model config: published widths, its depth cut where the run
+    says (``layers``, ``encoder_layers``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(run["arch"])
+    over = {f: run[k] for k, f in (("layers", "num_layers"),
+                                   ("encoder_layers", "encoder_layers")) if run.get(k)}
+    return dataclasses.replace(cfg, **over)
+
+
+def family_train_launches(cfg) -> dict:
+    """Kernel launches of one training step of `cfg` on one rank (one
+    microbatch; every layer under its checkpoint, as the published configs
+    run, so its forward runs again in the backward): each rmsnorm and
+    attention of a layer twice, each attention's backward once, the final
+    norms once; rmsnorm's backward is plain torch.  ssm: a norm a layer;
+    hybrid: the shared block (2 norms, 1 attention) after every
+    ``attn_every``-th layer, inside that layer's checkpoint; audio: 2 norms
+    and 1 attention an encoder layer, 3 norms and 2 attentions (self and
+    cross) a decoder layer, and the encoder's final norm; the rest 2 norms
+    and 1 attention a layer."""
+    L, E = cfg.num_layers, cfg.encoder_layers
+    if cfg.family == "ssm":
+        return {"rmsnorm": 2 * L + 1, "flash_attention": 0, "flash_attention_bwd": 0}
+    if cfg.family == "hybrid":
+        n = sum(1 for i in range(L) if i % cfg.attn_every == cfg.attn_every - 1)
+        return {"rmsnorm": 2 * L + 4 * n + 1, "flash_attention": 2 * n,
+                "flash_attention_bwd": n}
+    if E:
+        return {"rmsnorm": 4 * E + 1 + 6 * L + 1, "flash_attention": 2 * E + 4 * L,
+                "flash_attention_bwd": E + 2 * L}
+    return {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L, "flash_attention_bwd": L}
+
+
+def _family_train_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One rank of 2 pods x ``spec["data"]`` data ranks.  First the launcher's
+    runs ``spec["launcher"]`` (``launch.train.train_runs``, as the launcher's
+    own spawn runs them, in the fresh process).  Then each run of
+    ``spec["runs"]`` in turn: ``build_train_step`` at the run's config from
+    seed 0, its steps on seeded global batches (``batch_concrete``, this
+    rank's rows), kernel counts reset before each step; the last run's
+    memory given back before the next.  Writes its report."""
+    import torch
+    from repro_torch.configs import CommConfig, RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.core import telemetry as tel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import batch_concrete
+    from repro_torch.runtime.step import build_train_step
+    from repro_torch.runtime.train_loop import replica_checksum
+    world = 2 * spec["data"]
+    dist, dev, mesh = _rank_setup(torch, rank, world, init, spec, pods=2,
+                                  data=spec["data"])
+    try:
+        launcher.train_runs(spec["launcher"], rank)
+        _free(torch, dev)
+        row = mesh.pod_index * mesh.data + mesh.data_index
+        rep = {"rank": rank, "pod_index": mesh.pod_index, "data_index": mesh.data_index,
+               "runs": {}}
+        report = os.path.join(out, f"{spec['label']}.rank{rank}.json")
+        for run in spec["runs"]:
+            cfg = family_train_config(run)
+            gb, seq = run["global_batch"], run["seq_len"]
+            lb = gb // world
+            rc = RunConfig(model=cfg, shape=ShapeConfig("train", seq, gb, "train"),
+                           comm=CommConfig(mode="hierarchical", compress=run["codec"]),
+                           train=TrainConfig(lr=3e-4, total_steps=run["steps"],
+                                             warmup_steps=1))
+            tel.get_telemetry().reset()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            b = build_train_step(rc, mesh)
+            state = b.init_state(0)
+            plan = tel.get_telemetry().path(b.path.key).plan.__dict__
+            init_s = time.perf_counter() - t0
+            steps = []
+            for i in range(run["steps"]):
+                batch = batch_concrete(cfg, "train", gb, seq, seed=i, device=dev)
+                batch = {k: v[row * lb:(row + 1) * lb] for k, v in batch.items()}
+                ops.reset_launch_counts()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                state, m = b.fn(state, batch)
+                loss = float(m["loss"])
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                dt = time.perf_counter() - t
+                steps.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                              "aux_loss": float(m["aux_loss"]), "time_s": dt,
+                              "sync_s": m["sync_s"], "n_chunks": len(m["chunks"]),
+                              "wire_bytes": m["wire_bytes"], "sent_bytes": m["sent_bytes"],
+                              "gather_s": m["gather_s"],
+                              "reduce_scatter_s": m["reduce_scatter_s"],
+                              "launches": ops.launch_counts(),
+                              "checksum": replica_checksum(state["params"])})
+                del batch, m
+            rep["runs"][run["name"]] = {
+                "steps": steps, "plan": plan, "init_s": init_s, "zero": b.zero,
+                "params": cfg.param_count(), "layers": cfg.num_layers,
+                "encoder_layers": cfg.encoder_layers,
+                "tokens_per_rank": lb * seq,
+                "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None)}
+            del b, state
+            _free(torch, dev)
+            # after every run, so that a later run's failure keeps this one's
+            with open(report, "w") as f:
+                json.dump(rep, f)
+        if not spec["runs"]:
+            with open(report, "w") as f:
+                json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_family_train(run: dict, reps: list, data: int) -> dict:
+    """Checks of one run on every rank (``reps[r]["runs"][name]``): finite
+    losses and grad norms (the MoE aux loss finite and above 0); the pods'
+    parameters bit-identical after every step (under ZeRO each data index's
+    shards); every step's chunks and wire bytes the plan's; each step's
+    rmsnorm and flash launches :func:`family_train_launches`', quant and
+    dequant with int8.  Returns the run's row: step and sync ms (median of
+    steps 2-3, rank 0), tokens/s per pod, wire bytes a step, peak GB a rank,
+    the depth."""
+    import numpy as np
+    name = run["name"]
+    rs = [r["runs"][name] for r in reps]
+    cfg = family_train_config(run)
+    want = family_train_launches(cfg)
+    plan = rs[0]["plan"]
+    for r, x in enumerate(rs):
+        check(x["plan"] == plan, f"{name}: rank {r}'s plan is rank 0's")
+        for i, st in enumerate(x["steps"]):
+            tag = f"{name} rank {r} step {i}"
+            check(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]),
+                  f"{tag}: loss {st['loss']}, grad norm {st['grad_norm']} finite")
+            check(st["loss"] == rs[0]["steps"][i]["loss"],
+                  f"{tag}: the world's mean loss {st['loss']} is rank 0's")
+            if cfg.moe is not None:
+                check(math.isfinite(st["aux_loss"]) and st["aux_loss"] > 0,
+                      f"{tag}: MoE aux loss {st['aux_loss']} finite and above 0")
+            check(st["n_chunks"] == plan["n_chunks"]
+                  and round(st["wire_bytes"]) == plan["wire_bytes"],
+                  f"{tag}: {st['n_chunks']} chunks, {st['wire_bytes']} wire bytes "
+                  f"against the plan's {plan['n_chunks']}, {plan['wire_bytes']}")
+            la = st["launches"]
+            check(all(la[k] == v for k, v in want.items()),
+                  f"{tag}: launches {la}, the path's {want}")
+            if run["codec"] == "int8":
+                check(la["quant_int8"] > 0 and la["dequant_int8"] > 0,
+                      f"{tag}: int8 codec launches {la}")
+    for i in range(len(rs[0]["steps"])):
+        sums = [x["steps"][i]["checksum"] for x in rs]
+        same = [(0, 1)] if data == 1 else [(0, 2), (1, 3)]
+        check(all(sums[a] == sums[b] for a, b in same),
+              f"{name} step {i}: replicas' checksums {sums} (pods bit-identical)")
+    later = rs[0]["steps"][1:]
+    step_s = float(np.median([st["time_s"] for st in later]))
+    tokens_pod = rs[0]["tokens_per_rank"] * data
+    return {"name": name, "arch": run["arch"], "codec": run["codec"],
+            "mesh": f"2 x {data}", "zero": rs[0]["zero"], "layers": rs[0]["layers"],
+            "encoder_layers": rs[0]["encoder_layers"], "params": rs[0]["params"],
+            "seq_len": run["seq_len"], "tokens_per_pod": tokens_pod,
+            "step_ms_median_steps_2_3": 1e3 * step_s,
+            "sync_ms_median_steps_2_3": 1e3 * float(np.median([st["sync_s"] for st in later])),
+            "gather_ms_median_steps_2_3": 1e3 * float(np.median([st["gather_s"] for st in later])),
+            "reduce_scatter_ms_median_steps_2_3": 1e3 * float(np.median(
+                [st["reduce_scatter_s"] for st in later])),
+            "tokens_per_s_per_pod": tokens_pod / step_s,
+            "wire_bytes_per_step": rs[0]["steps"][-1]["wire_bytes"],
+            "n_chunks": plan["n_chunks"],
+            "losses": [st["loss"] for st in rs[0]["steps"]],
+            "grad_norms": [st["grad_norm"] for st in rs[0]["steps"]],
+            "aux_losses": [st["aux_loss"] for st in rs[0]["steps"]],
+            "launches_per_step_rank0": rs[0]["steps"][-1]["launches"],
+            "launches_rank0": {k: sum(st["launches"][k] for st in rs[0]["steps"])
+                               for k in rs[0]["steps"][0]["launches"]},
+            "peak_gb_by_rank": [None if x["peak_mem_bytes"] is None
+                                else x["peak_mem_bytes"] / 1e9 for x in rs],
+            "init_s_rank0": rs[0]["init_s"]}
+
+
+def _spawn_family_train(torch, out_dir: str, runs: list, data: int, label: str,
+                        launcher: list) -> list:
+    """One spawn of 2 x `data` ranks on the card (:func:`_family_train_rank`:
+    the parsed launcher runs `launcher`, then the family runs `runs`), with
+    expandable segments, under a host memory watch; returns the ranks'
+    reports."""
+    watch = _MemWatch(label)
+    try:
+        with expandable_segments():
+            return _spawn(torch, _family_train_rank, 2 * data, out_dir,
+                          dict(FAMILY_TRAIN_SPEC, data=data, runs=runs, label=label,
+                               launcher=launcher), label)
+    finally:
+        watch.stop()
+
+
+FAMILY_TRAIN_SPEC = {"device": "cuda", "gloo_timeout_s": 900}
+
+
+def phase_families_train(torch, out_dir: str, smi: str, phases) -> dict:
+    """The 2-pod training spawns: 2 pods x 1 data rank, then 2 x 2 (two and
+    four processes sharing the card, gloo pod groups, expandable segments,
+    whichever phases are asked).  Each first runs the
+    launcher's runs of the phases in `phases` that train on its mesh (2 x 1:
+    train; 2 x 2: zero, and buckets after it), which the phases then check
+    (:func:`phase_train`, :func:`phase_zero`, :func:`phase_buckets`); sharing
+    the spawns saves starting each phase's ranks.  Then, with families_train
+    in `phases`, the families: FAMILY_TRAIN_RUNS on 2 x 1, every family in
+    turn at published width, FAMILY_TRAIN_STEPS steps each with the
+    hierarchical psum (no codec; whisper-medium also int8), and
+    FAMILY_ZERO_RUN on 2 x 2 ZeRO-3; :func:`check_family_train` on each.  A
+    spawn with nothing to run is not started."""
+    from repro_torch.launch import train as launcher
+    fam = "families_train" in phases
+    meshes = [
+        (1, "ftrain", train_specs() if "train" in phases else [],
+         [_family_run(r) for r in FAMILY_TRAIN_RUNS] if fam else []),
+        (2, "fzero", (zero_specs() if "zero" in phases or "buckets" in phases else [])
+         + (bucket_specs() if "buckets" in phases else []),
+         [_family_run(FAMILY_ZERO_RUN)] if fam else [])]
+    out = {}
+    for data, label, specs, runs in meshes:
+        if not (specs or runs):
+            continue
+        t0 = time.perf_counter()
+        parsed = launcher.parse_runs(_launcher_argv(specs, out_dir)) if specs else []
+        reps = _spawn_family_train(torch, out_dir, runs, data, label, parsed)
+        for run in runs:
+            out[run["name"]] = dict(check_family_train(run, reps, data), card=smi)
+            emit({"phase": "families_train", **out[run["name"]]})
+        out[f"spawn_2x{data}_s"] = time.perf_counter() - t0
+    return out
+
+
 def _demangle(names: list[str]) -> list[str]:
     """`void (anonymous namespace)::k<128, 4>(...)` -> `k<128, 4>`, by
     c++filt where the toolkit has it; the mangled names otherwise."""
@@ -3989,22 +4420,23 @@ def main() -> int:
     lap("profile")
     fam = phase_families(torch, dev, smi) if "families" in phases else {}
     lap("families")
-    train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}
+    ftrain, train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}, {}
     route, ckpt, facade, chaos, elastic = {}, {}, {}, {}, {}
-    if any(p in phases for p in ("train", "zero", "buckets", "ring", "sites",
-                                 "autotune", "route", "ckpt", "facade", "chaos",
-                                 "elastic")):
-        import tempfile
+    if any(p in phases for p in ("families_train", "train", "zero", "buckets", "ring",
+                                 "sites", "autotune", "route", "ckpt", "facade",
+                                 "chaos", "elastic")):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+            # the train, zero and buckets phases' launcher runs go first in the
+            # 2-pod spawns, before the families
+            if any(p in phases for p in ("families_train", "train", "zero", "buckets")):
+                ftrain = phase_families_train(torch, d, smi, phases)
             if "train" in phases:
                 train = phase_train(torch, d)
-                lap("train")
             if "zero" in phases or "buckets" in phases:
                 zero = phase_zero(torch, d)
-                lap("zero")
             if "buckets" in phases:
                 bkt = phase_buckets(torch, d, zero)
-                lap("buckets")
+            lap("train_spawns")
             if "ring" in phases:
                 ring = phase_ring(torch, d)
                 lap("ring")
@@ -4083,6 +4515,9 @@ def main() -> int:
                              a: (r["runs"][-1]["launches"] if "runs" in r
                                  else r["launches"]).get(name, 0)
                              for a, r in fam.items()},
+                         "launches_families_train": {
+                             n: r["launches_rank0"].get(name, 0)
+                             for n, r in ftrain.items() if isinstance(r, dict)},
                          **({"ring_wire_block": ring_row} if ring_row else {}),
                          "max_abs_err": main_row["max_abs_err"],
                          "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

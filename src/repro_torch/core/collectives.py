@@ -150,6 +150,9 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
                                 algo=algo, compress=compress) * share,
                             "sent_bytes": sent})
 
+    # the last wave's lists hold its chunks' results: let them go, so that
+    # stitching gives each chunk's memory back as it is placed
+    wave = landed = issued = None
     out = [st.stitch_leaf(leaf, done[i]) if done[i] else leaf
            for i, leaf in enumerate(leaves)]
     return unflatten(td, out)

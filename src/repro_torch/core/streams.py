@@ -172,9 +172,22 @@ def slice_chunk(x: torch.Tensor, c: Chunk) -> torch.Tensor:
 
 def stitch_leaf(x_template: torch.Tensor,
                 pieces: list[tuple[Chunk, torch.Tensor]]) -> torch.Tensor:
-    """Reassemble a leaf from its processed chunks."""
+    """Reassemble a leaf from its processed chunks.  `pieces` (a list) is
+    emptied as each chunk is copied into place, so that a chunk's memory
+    can be given back before the next is placed: a leaf's synced chunks and
+    the leaf they form are never all held at once."""
     if len(pieces) == 1 and (pieces[0][0].size == 0
                              or pieces[0][0].size == x_template.shape[pieces[0][0].dim]):
-        return pieces[0][1]
-    pieces = sorted(pieces, key=lambda p: p[0].start)
-    return torch.cat([p[1] for p in pieces], dim=pieces[0][0].dim)
+        return pieces.pop()[1]
+    pieces.sort(key=lambda p: p[0].start, reverse=True)
+    dim = pieces[0][0].dim
+    first = pieces[0][1]
+    shape = list(first.shape)
+    shape[dim] = sum(p[1].shape[dim] for p in pieces)
+    out = torch.empty(shape, dtype=first.dtype, device=first.device)
+    at = 0
+    while pieces:
+        t = pieces.pop()[1]
+        out.narrow(dim, at, t.shape[dim]).copy_(t)
+        at += t.shape[dim]
+    return out

@@ -6,6 +6,8 @@
       --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 2 \
       --ranks 4 --device cpu --steps 2
+  python -m repro_torch.launch.train --arch mamba2-780m --smoke --pods 2 \
+      --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 3 \
       --global-batch 6 --device cpu --steps 2
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --pods 4 \
@@ -37,6 +39,9 @@ As the JAX launcher, the CLI has no flag for ``CommConfig.algo`` or
 spawn of the ranks (a new mesh and Trainer each), which saves starting the
 ranks again for each.
 
+``--layers N`` keeps the model's first N layers at its published widths
+(the port's own flag: a run cut to fit a card's memory or a time budget).
+
 ``--ckpt-dir`` (with ``--ckpt-every``) checkpoints the run, rank 0 writing,
 and a restart with the same directory restores the newest checkpoint;
 ``--replica-dir`` mirrors the checkpoints there.  ``--route SRC:DST`` plans
@@ -50,7 +55,11 @@ STEP`` drops the route's direct link at STEP and attaches the self-healing
 SITE`` attaches elastic membership (``SiteMembership`` with
 ``--lease-steps``) coordinated from SITE; ``--local-steps K`` is local SGD,
 K site-local steps between cross-site delta syncs.  Every rank builds its
-own topology, monitor and membership from the same flags.  The JAX
+own topology, monitor and membership from the same flags.  ``--arch``
+takes the dense, moe, ssm and hybrid families; it refuses the audio and vlm
+families, whose batches need stub inputs that the token pipeline does not
+make (the JAX launcher fails on them when it places the batch): train those
+with :class:`repro_torch.runtime.Trainer` on dict batches.  The JAX
 launcher's ``--production-mesh`` and ``--multi-pod`` are not ported yet and
 stop the launcher naming their ROADMAP item.  ``--check-replicas`` compares
 every pod's parameters after every step, ``--report`` writes each rank's
@@ -61,6 +70,7 @@ the incident timeline), ``--profile-step`` runs one step of rank 0 under
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -106,6 +116,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced model + small shapes")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the model's first N layers, its widths as they "
+                         "are (not a flag of the JAX launcher)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods (the WAN axis of the mesh)")
     ap.add_argument("--ranks", type=int, default=None,
@@ -149,7 +162,23 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+# families whose batches carry stub inputs beside the tokens: the token
+# pipeline has none, and the JAX launcher cannot place them (ROADMAP.md
+# section C 19); the Trainer trains them from dict batches
+STUB_INPUT_FAMILIES = ("audio", "vlm")
+
+
 def _check_flags(args) -> None:
+    cfg = get_config(args.arch)
+    family = cfg.family
+    if family in STUB_INPUT_FAMILIES:
+        raise SystemExit(f"--arch {args.arch}: the {family} family's batches "
+                         f"need stub inputs beside the tokens, which the token "
+                         f"pipeline does not make (ROADMAP.md section C 19); "
+                         f"train it with runtime.Trainer on dict batches")
+    if args.layers is not None and not 1 <= args.layers <= cfg.num_layers:
+        raise SystemExit(f"--layers {args.layers}: {args.arch} has "
+                         f"{cfg.num_layers} layers")
     if args.ranks is None:
         args.ranks = args.pods
     if args.pods < 1 or args.ranks < 1 or args.ranks % args.pods:
@@ -219,6 +248,8 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     base = SHAPES[args.shape]
     seq = args.seq_len or (64 if args.smoke else base.seq_len)
     gb = args.global_batch or (8 if args.smoke else base.global_batch)
@@ -297,7 +328,7 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
               "device": str(dev),
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),
-              "arch": cfg.name, "params": cfg.param_count(),
+              "arch": cfg.name, "params": cfg.param_count(), "layers": cfg.num_layers,
               "seq_len": seq, "global_batch": gb, "mode": comm.mode,
               "compress": comm.compress, "algo": comm.algo,
               "bucket_mb": comm.bucket_mb, "streams": path.streams,
@@ -323,27 +354,10 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
     return report
 
 
-def _worker(rank: int, runs: list, init_method: str) -> None:
-    """Rank `rank` of a spawn: each (args, comm) of `runs` in turn, the last
-    run's memory given back before the next one starts."""
-    dist.init_process_group(BACKEND, init_method=init_method, rank=rank,
-                            world_size=runs[0][0].ranks)
-    try:
-        for i, (args, comm) in enumerate(runs):
-            if i:
-                gc.collect()
-                if torch.cuda.is_available():
-                    torch.cuda.empty_cache()
-            train(args, rank, comm)
-    finally:
-        dist.destroy_process_group()
-
-
-def main_runs(runs: list) -> None:
-    """Launches `runs`, each ``(argv, comm)`` as :func:`main` takes them, one
-    after the other in one spawn of ranks: every rank runs each in turn.
-    The runs must name the same ``--ranks`` and ``--device``; each writes its
-    own ``--report``."""
+def parse_runs(runs: list) -> list:
+    """(args, comm) of each ``(argv, comm)`` of `runs`, as :func:`main` takes
+    them, the flags checked; the runs must name the same ``--ranks`` and
+    ``--device``."""
     parsed = []
     for argv, comm in runs:
         args = parser().parse_args(argv)
@@ -355,18 +369,48 @@ def main_runs(runs: list) -> None:
             raise SystemExit(f"main_runs: every run needs --ranks {first.ranks} "
                              f"and --device {first.device}, got --ranks "
                              f"{args.ranks} --device {args.device}")
+    return parsed
+
+
+def train_runs(parsed: list, rank: int) -> None:
+    """Rank `rank`'s part of `parsed` (:func:`parse_runs`) in a process that
+    has joined the world's process group: each run in turn, the last run's
+    memory given back before the next one starts."""
+    for i, (args, comm) in enumerate(parsed):
+        if i:
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        train(args, rank, comm)
+
+
+def _worker(rank: int, runs: list, init_method: str) -> None:
+    """Rank `rank` of a spawn: :func:`train_runs` of `runs`."""
+    dist.init_process_group(BACKEND, init_method=init_method, rank=rank,
+                            world_size=runs[0][0].ranks)
+    try:
+        train_runs(runs, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def main_runs(runs: list) -> None:
+    """Launches `runs`, each ``(argv, comm)`` as :func:`main` takes them, one
+    after the other in one spawn of ranks: every rank runs each in turn
+    (:func:`train_runs`).  The runs must name the same ``--ranks`` and
+    ``--device``; each writes its own ``--report``."""
+    parsed = parse_runs(runs)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         raise SystemExit("main_runs spawns its ranks: run it without RANK "
                          "and WORLD_SIZE")
-    if first.ranks == 1:
-        for args, comm in parsed:
-            train(args, 0, comm)
+    if parsed[0][0].ranks == 1:
+        train_runs(parsed, 0)
         return
     rdv = tempfile.mkdtemp(prefix="repro_torch_train_")
     try:
         torch.multiprocessing.start_processes(
             _worker, args=(parsed, f"file://{os.path.join(rdv, 'rendezvous')}"),
-            nprocs=first.ranks, join=True, start_method="spawn")
+            nprocs=parsed[0][0].ranks, join=True, start_method="spawn")
     finally:
         shutil.rmtree(rdv, ignore_errors=True)
 

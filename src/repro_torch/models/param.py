@@ -121,7 +121,9 @@ def tree_init(defs, seed: int = 0, *, device="cuda", dims=None, mesh=None):
                     defs, dims)
 
 
-def _to_tensor(a, device, dtype) -> torch.Tensor:
+def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
+    """`a` (a numpy array, ml_dtypes' bfloat16 included) as a tensor on
+    `device`, in `dtype` or its own."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: no numpy twin
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -136,7 +138,7 @@ def params_from_jax(tree_of_numpy, device="cuda", dtype=None):
     ``np.asarray``, as the port's tree: same names, same stacked
     ``(layers, ...)`` layout, optionally cast to `dtype`."""
     device = torch.device(device)
-    return tree_map(lambda a: _to_tensor(a, device, dtype), tree_of_numpy)
+    return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree_of_numpy)
 
 
 def state_from_jax(state_of_numpy, device="cuda", *, mesh=None,

@@ -15,6 +15,14 @@ With ``buckets=`` (a :class:`repro_torch.core.buckets.BucketPlan` and the
 stacked flags it was planned with) the update is applied bucket by bucket
 over layer-range slices and concatenated back: the math is elementwise, so
 the bucketed update is bit-identical to the fused one.
+
+Each leaf (or bucket slice) is updated in pieces of at most UPDATE_SLICE
+elements of the flattened leaf, which bounds the f32 temporaries of its
+update (a (131072, 5120) embedding's would be 2.7 GB each), and the new
+moments are written into the old ones: the update consumes `opt_state`, as
+the reference's train step donates its state to ``jax.jit`` (a caller that
+still needs the old moments passes a copy).  Neither changes a bit of the
+result.
 """
 from __future__ import annotations
 
@@ -63,6 +71,10 @@ def global_norm(grads, dims=None, group=None) -> torch.Tensor:
     return torch.sqrt(scat + repl)
 
 
+# elements of a leaf updated at once (see the module docstring)
+UPDATE_SLICE = 1 << 24
+
+
 def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
                  lr: torch.Tensor, *, dims=None, group=None, buckets=None,
                  stacked=None):
@@ -70,7 +82,9 @@ def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
     and `group` go to :func:`global_norm` (ZeRO: the shards' dims and the
     data-parallel group).  `buckets` (a ``BucketPlan``) with `stacked` (the
     per-leaf flags it was planned with, a flat list or a tree beside the
-    parameters) applies the update bucket by bucket."""
+    parameters) applies the update bucket by bucket.  The new moments are
+    written into `opt_state`'s tensors where they are contiguous (see the
+    module docstring)."""
     if buckets is not None and stacked is None:
         raise ValueError("adamw_update: buckets= needs the stacked flags the "
                          "plan was built with (stacked=None)")
@@ -101,29 +115,52 @@ def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
     if buckets is not None and buckets.buckets:
         out = _bucketed_apply(upd, args, buckets, stacked)
     else:
-        out = [upd(*a) for a in args]
+        out = [_sliced_apply(upd, *a) for a in args]
     return (unflatten(td, [o[0] for o in out]),
             {"m": unflatten(td, [o[1] for o in out]),
              "v": unflatten(td, [o[2] for o in out]), "step": step},
             {"grad_norm": norm})
 
 
+def _targets(p, m, v) -> tuple:
+    """Where a leaf's update goes: a new parameter tensor, and the moments
+    into `m` and `v` themselves (the consumed state) where they are
+    contiguous, into new tensors otherwise."""
+    new = lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return (new(p), m if m.is_contiguous() else new(m),
+            v if v.is_contiguous() else new(v))
+
+
+def _sliced_apply(upd, p, g, m, v, out=None) -> tuple:
+    """upd(p, g, m, v) -> (p, m, v) over pieces of at most UPDATE_SLICE
+    elements of the flattened leaf, written into `out` (contiguous
+    (p, m, v) of the leaf's shapes; :func:`_targets` when None)."""
+    out = out or _targets(p, m, v)
+    src = [t.reshape(-1) for t in (p, g, m, v)]
+    dst = [t.view(-1) for t in out]
+    for i in range(0, src[0].numel(), UPDATE_SLICE):
+        sl = slice(i, i + UPDATE_SLICE)
+        for d, r in zip(dst, upd(*(t[sl] for t in src))):
+            d[sl] = r
+    return out
+
+
 def _bucketed_apply(upd, args: list, plan, stacked) -> list:
     """Apply a leafwise (p, g, m, v) -> (p, m, v) update bucket by bucket:
-    stacked leaves per layer-range slice, concatenated back along the layers
-    dim (the slices tile it), rest-bucket leaves whole; a leaf in no bucket
-    keeps its parameter and moments, as in the reference."""
+    stacked leaves per layer-range slice, each slice written into its rows
+    of the leaf's targets (the slices tile the layers dim), rest-bucket
+    leaves whole; a leaf in no bucket keeps its parameter and moments, as
+    in the reference."""
     flags = stacked if isinstance(stacked, list) else flatten(stacked)[0]
     out: list = [(p, m, v) for p, _, m, v in args]
-    pieces: dict[int, list] = {}
     for b in plan.buckets:
         for i in bucket_indices(flags, b):
             if b.is_rest:
-                out[i] = upd(*args[i])
-            else:
-                res = upd(*[slice_leaf(t, b.lo, b.hi) for t in args[i]])
-                pieces.setdefault(i, []).append((b.lo, res))
-    for i, ps in pieces.items():
-        ps.sort(key=lambda t: t[0])
-        out[i] = tuple(torch.cat([r[j] for _, r in ps], dim=0) for j in range(3))
+                out[i] = _sliced_apply(upd, *args[i])
+                continue
+            p, _, m, v = args[i]
+            if out[i][0] is p:           # the leaf's first slice
+                out[i] = _targets(p, m, v)
+            _sliced_apply(upd, *[slice_leaf(t, b.lo, b.hi) for t in args[i]],
+                          out=tuple(slice_leaf(t, b.lo, b.hi) for t in out[i]))
     return out

@@ -148,13 +148,23 @@ def _timed(stats, kind: str, dev: torch.device):
 
 
 def _make_gather(defs, dims_tree, zero: bool, group, stats=None):
-    """Returns (gather_layer, gather_top): gather_layer(lp) gathers one
-    layer's parameters inside the layer loop, gather_top(params) the leaves
-    outside it (embedding, head, final norm).  Identities without ZeRO.
-    `stats`: see :class:`AllGatherAtUse`."""
+    """Returns (gather_layer, gather_top), as the reference's: gather_layer(lp)
+    gathers one layer's parameters inside a layer loop, matched by its tree
+    structure to one table per stacked subtree (``blocks``, and the audio
+    family's ``encoder`` without its final norm); gather_top(params) the
+    leaves outside the loops (embedding, head, final norms, the hybrid
+    family's shared block).  An unknown layer structure raises.  Identities
+    without ZeRO.  `stats`: see :class:`AllGatherAtUse`."""
     if not zero or group is None:
         return None, lambda p: p
-    layer_dims = strip_layer_dim(dims_tree["blocks"])
+    tables = []
+    for key in ("blocks", "encoder"):
+        if key in defs:
+            src = dims_tree[key]
+            if key == "encoder":   # ln_f is applied outside the layer loop
+                src = {k: v for k, v in src.items() if k != "ln_f"}
+            leaves, td = flatten(strip_layer_dim(src))
+            tables.append((td, leaves))
 
     def gather_leaf(x, d):
         if d is None:
@@ -162,11 +172,22 @@ def _make_gather(defs, dims_tree, zero: bool, group, stats=None):
         return AllGatherAtUse.apply(x, d, group, stats)
 
     def gather_layer(lp):
-        return map_with_dims(gather_leaf, lp, layer_dims)
+        leaves, td = flatten(lp)
+        for td_ref, dims in tables:
+            if td == td_ref:
+                return unflatten(td, [gather_leaf(x, d) for x, d in zip(leaves, dims)])
+        raise ValueError(f"gather: unknown layer structure {td}")
 
     def gather_top(params):
-        return {k: v if k == "blocks" else map_with_dims(gather_leaf, v, dims_tree[k])
-                for k, v in params.items()}
+        out = {}
+        for k, v in params.items():
+            if k == "blocks":
+                out[k] = v
+            elif k == "encoder":
+                out[k] = {**v, "ln_f": gather_leaf(v["ln_f"], dims_tree[k]["ln_f"])}
+            else:
+                out[k] = map_with_dims(gather_leaf, v, dims_tree[k])
+        return out
 
     return gather_layer, gather_top
 
@@ -276,6 +297,18 @@ def _bucket_rows(plan, log: list, seconds: dict) -> list:
     return rows
 
 
+def split_microbatches(batch: dict, m: int) -> list[dict]:
+    """`batch` cut along rows into `m` microbatches, every leaf alike (the
+    tokens and the family's stub inputs), as the reference reshapes each
+    leaf to ``(m, rows // m, ...)``."""
+    for k, v in batch.items():
+        if v.shape[0] % m:
+            raise ValueError(f"local batch {k!r} of {v.shape[0]} rows does not "
+                             f"split into {m} microbatches")
+    parts = {k: v.chunk(m, dim=0) for k, v in batch.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(m)]
+
+
 def _detached(metrics: dict) -> dict:
     return {k: v.detach() if isinstance(v, torch.Tensor) else v
             for k, v in metrics.items()}
@@ -284,10 +317,14 @@ def _detached(metrics: dict) -> dict:
 def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
                      local_only: bool = False) -> StepBundle:
     """The training step on `mesh`: ``fn(state, batch) -> (state, metrics)``
-    with `batch` this rank's rows ``{"tokens": (B_local, S+1)}`` on the
-    mesh's device and, under ZeRO (``bundle.zero``), `state` this rank's
-    shards.  The autotuner's warm start reads the modeled compute window at
-    the H100's peak (``launch/roofline.py``).
+    with `batch` this rank's rows ``{"tokens": (B_local, S+1)}`` (and the
+    family's stub inputs, ``patch_embeds`` or ``source_frames``, with the
+    same rows) on the mesh's device and, under ZeRO (``bundle.zero``),
+    `state` this rank's shards.  The step donates `state`, as the
+    reference's ``jax.jit(donate_argnums=(0,))``: its AdamW moments are
+    updated in place, so the caller keeps only the returned state.  The
+    autotuner's warm start reads the modeled compute window at the H100's
+    peak (``launch/roofline.py``).
 
     Metrics: loss (averaged over every rank), lr, grad_norm (the
     reference's: under ZeRO the scattered leaves count once per pod,
@@ -471,17 +508,15 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
 
     def fn(state: dict, batch: dict):
         params = state["params"]
-        tokens = batch["tokens"]
-        if tokens.shape[0] % m_micro:
-            raise ValueError(f"local batch {tokens.shape[0]} does not split "
-                             f"into {m_micro} microbatches")
-        mbs = [{**batch, "tokens": t} for t in tokens.chunk(m_micro, dim=0)]
+        mbs = split_microbatches(batch, m_micro)
         cur.update(sync_s=0.0, log=[], bucket_s={})
         inpod.update(inpod_stats())
         loss, metrics, grads = accum_grads(grad_fn, params, mbs, sync=sync,
                                            overlap=m_micro > 1)
         grads = tree_map(lambda g: g.div_(sync_world), grads)
         lr = lr_at(state["opt"]["step"], tc, device=dev)
+        # the step donates its state, as the reference's jit does: AdamW
+        # writes the new moments into the old ones
         new_params, new_opt, stats = adamw_update(
             grads, state["opt"], params, tc, lr, dims=dims_or_none,
             group=dp_group if zero else None, buckets=plan,
@@ -491,7 +526,7 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
             loss = (psum_group(lh, mesh.world_group) / dp_world).reshape(()).to(dev)
         log = cur["log"]
         out = {"loss": loss, "lr": lr, **stats,
-               "aux_loss": metrics.get("aux_loss"),
+               "aux_loss": metrics.get("aux_loss", torch.zeros((), device=dev)),
                "sync_s": cur["sync_s"], "chunks": log,
                "wire_bytes": sum(c["wire_bytes"] for c in log),
                "sent_bytes": sum(c["sent_bytes"] for c in log), **inpod,

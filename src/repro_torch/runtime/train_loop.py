@@ -64,7 +64,6 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -77,7 +76,7 @@ from repro_torch.core.localsgd import LocalSGDController
 from repro_torch.core.retry import RetryPolicy, RetryState
 from repro_torch.core.telemetry import get_telemetry
 from repro_torch.core.tree import flatten, tree_map
-from repro_torch.models.param import shard_leaf
+from repro_torch.models.param import shard_leaf, tensor_from_numpy
 from repro_torch.runtime.step import (StepBundle, build_catchup,
                                       build_delta_sync, build_train_step)
 
@@ -332,20 +331,33 @@ class Trainer:
         return "initialized"
 
     def _place_batch(self, batch_np) -> dict:
-        """This rank's rows of the global batch: with D data ranks, rank
+        """This rank's rows of the global batch, every key of a dict batch
+        alike (the tokens and the family's stub inputs), as the reference
+        places the whole dict under its batch specs: with D data ranks, rank
         (p, d) takes rows [(p*D + d)*lb, (p*D + d + 1)*lb), lb = gb/(P*D),
-        as the reference's ``P(("pod", "data"))`` sharding gives them."""
-        toks = batch_np["tokens"] if isinstance(batch_np, dict) else batch_np
+        as ``P(("pod", "data"))`` gives them.  The token ids become int64;
+        the other leaves keep their dtype (numpy's, ml_dtypes' bfloat16, or a
+        tensor's)."""
+        if not isinstance(batch_np, dict):
+            batch_np = {"tokens": batch_np}
         m = self.mesh
         n = m.pod * m.data
-        if toks.shape[0] % n:
-            raise ValueError(f"global batch {toks.shape[0]} does not split over "
+        rows = batch_np["tokens"].shape[0]
+        if rows % n:
+            raise ValueError(f"global batch {rows} does not split over "
                              f"{m.pod} pods x {m.data} data ranks")
-        lb = toks.shape[0] // n
+        lb = rows // n
         r = m.pod_index * m.data + m.data_index
-        rows = np.ascontiguousarray(toks[r * lb:(r + 1) * lb])
-        return {"tokens": torch.as_tensor(rows, dtype=torch.int64,
-                                          device=self.bundle.device)}
+        out = {}
+        for k, a in batch_np.items():
+            if a.shape[0] != rows:
+                raise ValueError(f"batch leaf {k!r} has {a.shape[0]} rows, "
+                                 f"the tokens {rows}")
+            part = a[r * lb:(r + 1) * lb]
+            dtype = torch.int64 if k == "tokens" else None
+            out[k] = (part.to(self.bundle.device, dtype) if isinstance(part, torch.Tensor)
+                      else tensor_from_numpy(part, self.bundle.device, dtype))
+        return out
 
     def _replicas_agree(self) -> int:
         """This rank's checksum, after checking it against those of the ranks

@@ -123,7 +123,7 @@ def test_note_bucket_plans_match_reference():
 def test_bucketed_adamw_bit_identical_to_fused(pdtype):
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import buckets as pbk
-    from repro_torch.core.tree import flatten
+    from repro_torch.core.tree import flatten, tree_map
     from repro_torch.optim import adamw_update, init_opt_state
     g = torch.Generator().manual_seed(1)
     dt = getattr(torch, pdtype)
@@ -141,9 +141,11 @@ def test_bucketed_adamw_bit_identical_to_fused(pdtype):
         lr = torch.tensor(1e-3)
         opt = init_opt_state(params)
         for _ in range(2):   # the second step from moments that are not zero
-            p1, o1, s1 = adamw_update(grads, opt, params, tc, lr, dims=dims)
-            p2, o2, s2 = adamw_update(grads, opt, params, tc, lr, dims=dims,
-                                      buckets=plan, stacked=stacked)
+            # each update consumes the moments it is given: a copy each
+            p1, o1, s1 = adamw_update(grads, tree_map(torch.clone, opt), params, tc,
+                                      lr, dims=dims)
+            p2, o2, s2 = adamw_update(grads, tree_map(torch.clone, opt), params, tc,
+                                      lr, dims=dims, buckets=plan, stacked=stacked)
             for a, b in zip(flatten((p1, o1["m"], o1["v"]))[0],
                             flatten((p2, o2["m"], o2["v"]))[0]):
                 assert a.dtype == b.dtype and torch.equal(a, b)
