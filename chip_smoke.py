@@ -188,6 +188,30 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             launched at the path's count every step
             (``family_train_launches``); step, sync ms, tokens/s per pod,
             wire bytes and peak memory per rank.
+21. tp     (run after the 2-pod spawns) tensor and expert parallelism on the
+            model axis: qwen1.5-0.5b through the launcher's ``--model 2`` on
+            2 pods x 1 data rank x 2 model ranks (four processes, in the
+            2 x 2 spawn after the zero and buckets runs) at 24 layers on the
+            train phase's batch, 3 steps with no codec and with int8:
+            losses equal on every rank and step 1's within 5e-3 of the train
+            phase's no-codec 2 x 1 run's (queued when only tp is asked),
+            each model index's parameters bit-identical across pods,
+            every step's chunks the plan's and the model ranks' bytes the
+            plan's plus the replicated leaves' once more, the kernels'
+            launches the path's; then one spawn of 1 x 1 x 2: llama3.2-3b
+            at 28 layers and phi3.5-moe at 8 of 32 (its prefill through
+            ``moe_ep``, its decode through the expert-sharded fallback)
+            serving 8 prompts of 1024 tokens and 64 greedy tokens through
+            ``Server.generate`` (prefill, decode ms a token, tokens/s, the
+            model group's all-reduce and all-to-all ms, launches, peak
+            memory), the share of tokens equal to one rank's with the
+            margins where they depart (phi's also against one rank routing
+            each half of a prompt with its own capacity, as ``moe_ep``
+            does), the f32 decode and the f32 prefill against one rank's
+            within 1e-2 relative L2 (phi's prefill at the path's 8 x 1024
+            tokens against that local-capacity run, each side's dropped
+            pairs beside); and phi3.5-moe's training step at 3 of 32
+            layers (3 steps, 4096 tokens).
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -214,8 +238,8 @@ PEAK_BF16 = 989e12           # dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 << 20
 PHASES = ("env", "build", "kernels", "small", "engine", "serve_chaos", "profile",
-          "families", "families_train", "train", "zero", "buckets", "ring", "sites", "autotune", "route", "ckpt",
-          "facade", "chaos", "elastic")
+          "families", "families_train", "train", "zero", "buckets", "tp", "ring", "sites",
+          "autotune", "route", "ckpt", "facade", "chaos", "elastic")
 CODECS = ("none", "bf16", "int8")
 
 
@@ -483,7 +507,13 @@ def phase_kernels(torch, dev) -> dict:
              (8, 256, 256, 16, 16, 64, None, True, "families"),
              (2, 20, 1500, 16, 16, 64, None, False, "check"),
              (2, 100, 65, 16, 16, 64, None, False, "check"),
-             (2, 200, 1500, 32, 8, 128, None, False, "check")]
+             (2, 200, 1500, 32, 8, 128, None, False, "check"),
+             # the tp phase's rank-local shapes (2 model ranks): llama3.2-3b's
+             # prefill (12 of 24 q heads over 4 of 8), qwen1.5-0.5b's and
+             # phi3.5-moe's training steps (8 of 16 over 8; 16 of 32 over 4)
+             (8, 1024, 1024, 12, 4, 128, None, True, "tp"),
+             (1, 4096, 4096, 8, 8, 64, None, True, "tp"),
+             (1, 4096, 4096, 16, 4, 128, None, True, "tp")]
     for B, Sq, Sk, H, KH, D, window, causal, on in cases:
         pairs = causal_pairs(torch, dev, Sq, Sk, window) if causal else Sq * Sk
         nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KH * D)
@@ -552,6 +582,10 @@ FLASH_BWD_CASES = [
     (1, 4096, 4096, 32, 32, 64, None, True, "families_train"),
     (1, 4096, 4096, 32, 8, 128, None, True, "families_train"),
     (2, 40, 333, 16, 16, 64, None, False, "check"),
+    # the tp phase's rank-local training shapes: qwen1.5-0.5b's 8 of 16
+    # heads, phi3.5-moe's 16 of 32 over 4 of 8
+    (1, 4096, 4096, 8, 8, 64, None, True, "tp"),
+    (1, 4096, 4096, 16, 4, 128, None, True, "tp"),
 ]
 
 
@@ -1810,12 +1844,46 @@ def _autotune_rank(rank: int, init: str, out: str, spec: dict) -> None:
         dist.destroy_process_group()
 
 
+# The ranks of :func:`_spawn` fork from one fork server that imported these
+# once: a freshly spawned rank imports torch again, and torch._dynamo at its
+# first torch.utils.checkpoint call, 14-19 s a spawn of 2 ranks on the H100
+# machine against 1.5 s from the warm server (measured on one H100).  None of
+# them touches CUDA when imported, so each rank initializes the card itself.
+SPAWN_PRELOAD = ["torch", "torch._dynamo", "torch.utils.checkpoint",
+                 "torch.distributed", "numpy", "repro_torch.runtime",
+                 "repro_torch.launch.train"]
+# the environment a rank takes from the spawner at its spawn: a forked rank
+# starts with the fork server's, fixed when the server started
+SPAWN_ENV = ("PYTORCH_CUDA_ALLOC_CONF",)
+
+
+def _rank_main(rank: int, fn, env: dict, *args) -> None:
+    """A rank of :func:`_spawn`: the spawner's SPAWN_ENV (None: unset), then
+    ``fn(rank, *args)``."""
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    fn(rank, *args)
+
+
 def _spawn(torch, fn, n: int, out_dir: str, spec: dict, label: str) -> list:
+    import multiprocessing
+    multiprocessing.get_context("forkserver").set_forkserver_preload(SPAWN_PRELOAD)
     rdv = os.path.join(out_dir, f"{label}_rdv")
-    torch.multiprocessing.start_processes(fn, args=(f"file://{rdv}", out_dir, spec),
-                                          nprocs=n, join=True, start_method="spawn")
+    env = {k: os.environ.get(k) for k in SPAWN_ENV}
+    torch.multiprocessing.start_processes(
+        _rank_main, args=(fn, env, f"file://{rdv}", out_dir, spec), nprocs=n,
+        join=True, start_method="forkserver")
     return [json.load(open(os.path.join(out_dir, f"{label}.rank{r}.json")))
             for r in range(n)]
+
+
+def stop_fork_server() -> None:
+    """End :func:`_spawn`'s fork server, if one was started."""
+    from multiprocessing import forkserver
+    forkserver._forkserver._stop()
 
 
 def _kernels_ran(la: dict, tag: str, kernels: bool) -> None:
@@ -2360,18 +2428,24 @@ def _host_mem() -> dict:
 
 
 def _children_rss() -> dict:
-    """{pid: resident GB} of this process's children."""
-    me, out = str(os.getpid()), {}
+    """{pid: resident GB} of this process's descendants (the ranks of a
+    spawn are the fork server's children)."""
+    status = {}
     for pid in os.listdir("/proc"):
         if not pid.isdigit():
             continue
         try:
             with open(f"/proc/{pid}/status") as f:
-                st = dict(line.split(":", 1) for line in f if ":" in line)
+                status[pid] = dict(line.split(":", 1) for line in f if ":" in line)
         except OSError:
             continue
-        if st.get("PPid", "").strip() == me:
-            out[int(pid)] = int(st.get("VmRSS", "0 kB").split()[0]) / 1e6
+    out, parents = {}, {str(os.getpid())}
+    while parents:
+        kids = {pid for pid, st in status.items()
+                if st.get("PPid", "").strip() in parents and int(pid) not in out}
+        for pid in kids:
+            out[int(pid)] = int(status[pid].get("VmRSS", "0 kB").split()[0]) / 1e6
+        parents = kids
     return out
 
 
@@ -4283,8 +4357,10 @@ def phase_families_train(torch, out_dir: str, smi: str, phases) -> dict:
     four processes sharing the card, gloo pod groups, expandable segments,
     whichever phases are asked).  Each first runs the
     launcher's runs of the phases in `phases` that train on its mesh (2 x 1:
-    train; 2 x 2: zero, and buckets after it), which the phases then check
-    (:func:`phase_train`, :func:`phase_zero`, :func:`phase_buckets`); sharing
+    train; 2 x 2: zero, buckets after it, then tp's 2 x 1 x 2 runs on a
+    fresh mesh of the same four processes), which the phases then check
+    (:func:`phase_train`, :func:`phase_zero`, :func:`phase_buckets`,
+    :func:`phase_tp`); sharing
     the spawns saves starting each phase's ranks.  Then, with families_train
     in `phases`, the families: FAMILY_TRAIN_RUNS on 2 x 1, every family in
     turn at published width, FAMILY_TRAIN_STEPS steps each with the
@@ -4294,10 +4370,12 @@ def phase_families_train(torch, out_dir: str, smi: str, phases) -> dict:
     from repro_torch.launch import train as launcher
     fam = "families_train" in phases
     meshes = [
-        (1, "ftrain", train_specs() if "train" in phases else [],
+        (1, "ftrain", train_specs() if "train" in phases
+         else train_specs()[:1] if "tp" in phases else [],
          [_family_run(r) for r in FAMILY_TRAIN_RUNS] if fam else []),
         (2, "fzero", (zero_specs() if "zero" in phases or "buckets" in phases else [])
-         + (bucket_specs() if "buckets" in phases else []),
+         + (bucket_specs() if "buckets" in phases else [])
+         + (tp_specs() if "tp" in phases else []),
          [_family_run(FAMILY_ZERO_RUN)] if fam else [])]
     out = {}
     for data, label, specs, runs in meshes:
@@ -4310,6 +4388,543 @@ def phase_families_train(torch, out_dir: str, smi: str, phases) -> dict:
             out[run["name"]] = dict(check_family_train(run, reps, data), card=smi)
             emit({"phase": "families_train", **out[run["name"]]})
         out[f"spawn_2x{data}_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tp: tensor and expert parallelism on the model axis
+# ---------------------------------------------------------------------------
+
+# qwen1.5-0.5b on 2 pods x 1 data rank x 2 model ranks through the launcher
+# (its --model flag), in phase_families_train's 2 x 2 spawn after the zero
+# and buckets runs: 3 steps with no codec and with int8 at its 24 layers on
+# the train phase's batch (one 4096-token sequence a pod), whose no-codec
+# 2 x 1 step-1 loss the TP run's is held to (TP_LOSS_TOL: the first-step
+# bf16 bound of tests/test_torch_train_step.py); with tp asked and train
+# not, that 2 x 1 run is queued all the same
+TP_CODECS = ("none", "int8")
+TP_LOSS_TOL = 5e-3
+TP_ARGS = TRAIN_ARGS + ["--ranks", "4", "--model", "2"]
+# serving on 1 x 1 x 2 (two processes on the card): (arch, layers; None keeps
+# the published depth), TP_REQUESTS prompts of TP_PROMPT tokens, TP_NEW
+# greedy tokens; phi3.5-moe at the families phase's 8 of 32 layers
+TP_SERVE = (("llama3.2-3b", None), ("phi3.5-moe-42b-a6.6b", MOE_LAYERS))
+TP_REQUESTS, TP_PROMPT, TP_NEW = 8, 1024, 64
+TP_WARM = 64
+# the f32 gate: TP_F32_ROWS prompts of TP_F32_TOKENS tokens decoded token by
+# token from an empty cache (decode's attention is plain f32 torch), the
+# last logits against one rank's; phi3.5-moe's f32 copies at 4 layers (two
+# of 8 layers would hold 42 GB at once)
+TP_F32_ROWS, TP_F32_TOKENS = 2, 16
+TP_F32_LAYERS = {"phi3.5-moe-42b-a6.6b": 4}
+# phi3.5-moe's training step on 1 x 1 x 2: 3 of its 32 layers, the deepest
+# whose two ranks fit the card (tools/train_family_memory.py --model 2: a
+# rank's peak 2.84 GB + 10.40 GB a layer), one 4096-token sequence, 3 steps
+TP_TRAIN = ("phi3.5-moe-42b-a6.6b", 3, 4096)
+TP_TRAIN_STEPS = 3
+TP_SPEC = {"device": "cuda", "gloo_timeout_s": 900}
+# the model group's collectives: the median of TP_TIMING_REPS calls each (a
+# prefill-sized all-reduce through the host takes ~0.1 s)
+TP_TIMING_REPS = 5
+
+
+def tp_specs() -> list:
+    return [(c, TP_ARGS, "tp", None) for c in TP_CODECS]
+
+
+def tp_config(arch: str, layers=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def replicated_bytes(cfg, tp: int) -> int:
+    """f32 bytes of the leaves whole on every model rank (no TP dim): each
+    model rank moves all of their chunks and its part of the others'."""
+    from repro_torch.core.tree import flatten
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_tp_dims
+    defs = build_model(cfg).param_defs()
+    return sum(4 * math.prod(pd.shape) for pd, t in zip(
+        flatten(defs)[0], flatten(tree_tp_dims(defs, tp))[0]) if t is None)
+
+
+def _check_tp_run(codec: str, rep: str, smi: str) -> dict:
+    """Check one 2 x 1 x 2 launcher run's four reports: the plan the same on
+    every rank; every step's loss finite and equal on every rank; every
+    step's chunks the plan's and the two model ranks' payload and wire bytes
+    the plan's plus the replicated leaves' once more (each moves its part of
+    a sharded leaf's chunk, all of a replicated one's); each model index's
+    parameters bit-identical across the pods after every step; rmsnorm and
+    the flash forward and backward launched as a step of the model needs
+    (``family_train_launches``), quant and dequant with int8 only.  Returns
+    the run's numbers."""
+    import numpy as np
+    reps = [json.load(open(f"{rep}.rank{r}.json")) for r in range(4)]
+    r0 = reps[0]
+    plan = r0["plan"]
+    cfg = tp_config("qwen1.5-0.5b", r0["layers"])
+    rep_bytes = replicated_bytes(cfg, 2)
+    ratio = plan["wire_bytes"] / plan["payload_bytes"]
+    want = {k: v * len(r0["history"]) for k, v in family_train_launches(cfg).items()}
+    tag = f"tp {codec}"
+    by = {(rp["pod_index"], rp["model_index"]): rp for rp in reps}
+    for r, rp in enumerate(reps):
+        check(rp["plan"] == plan and rp["model"] == 2, f"{tag}: rank {r}'s plan is rank 0's")
+        la = rp["launches"]
+        check(all(la[k] == v for k, v in want.items()),
+              f"{tag} rank {r}: launches {la}, the path's {want}")
+        check((la["quant_int8"] > 0 and la["dequant_int8"] > 0) == (codec == "int8"),
+              f"{tag} rank {r}: codec launches {la}")
+        for i, h in enumerate(rp["history"]):
+            check(math.isfinite(h["loss"]) and h["loss"] == r0["history"][i]["loss"],
+                  f"{tag} rank {r} step {i}: loss {h['loss']} finite, rank 0's")
+            check(h["n_chunks"] == plan["n_chunks"], f"{tag} rank {r} step {i}: "
+                  f"{h['n_chunks']} chunks, the plan's {plan['n_chunks']}")
+    for p in range(2):
+        for i in range(len(r0["history"])):
+            a, b = by[(p, 0)]["history"][i], by[(p, 1)]["history"][i]
+            check(a["payload_bytes"] + b["payload_bytes"] - rep_bytes == plan["payload_bytes"]
+                  and round(a["wire_bytes"] + b["wire_bytes"] - rep_bytes * ratio)
+                  == plan["wire_bytes"],
+                  f"{tag} pod {p} step {i}: model ranks' payload {a['payload_bytes']} + "
+                  f"{b['payload_bytes']}, wire {a['wire_bytes']} + {b['wire_bytes']} "
+                  f"against the plan {plan} and {rep_bytes} replicated bytes")
+    for m in range(2):
+        sums = [[h["checksum"] for h in by[(p, m)]["history"]] for p in range(2)]
+        check(sums[0] == sums[1], f"{tag}: model index {m}'s parameters bit-identical "
+              f"across pods after every step {sums}")
+    h = r0["history"][1:3]
+    step_s = float(np.median([x["time_s"] for x in h]))
+    tokens = r0["seq_len"] * r0["global_batch"] // r0["pods"]
+    return {"mesh": "2x1x2", "codec": codec, "card": smi, "layers": r0["layers"],
+            "losses": [x["loss"] for x in r0["history"]],
+            "grad_norms": [x["grad_norm"] for x in r0["history"]],
+            "step_ms_median_steps_2_3": 1e3 * step_s,
+            "tokens_per_s_per_pod": tokens / step_s,
+            "sync_ms_median_steps_2_3": 1e3 * float(np.median([x["sync_s"] for x in h])),
+            "wire_bytes_per_step_by_rank": [rp["history"][-1]["wire_bytes"] for rp in reps],
+            "sent_bytes_per_step_by_rank": [rp["history"][-1]["sent_bytes"] for rp in reps],
+            "plan": plan, "replicated_bytes": rep_bytes,
+            "peak_gb_by_rank": [(rp["peak_mem_bytes"] or 0) / 1e9 for rp in reps],
+            "launches_rank0": r0["launches"], "run_s": r0["run_s"]}
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _group_ms(torch, dev, fn, x) -> float:
+    """Median host ms of `fn(x)` over TP_TIMING_REPS calls, each from a
+    device sync to a device sync (every model rank calls it in step)."""
+    import numpy as np
+    fn(x)
+    out = []
+    for _ in range(TP_TIMING_REPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        fn(x)
+        _sync(torch, dev)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def _greedy_trace(torch, model, params, prompts, n: int, cache):
+    """Prefill, land into `cache`, `n` greedy decode steps: (prefill ms,
+    decode ms, the (B, n + 1) tokens, each step's top-1 minus top-2 logit
+    (B, n + 1))."""
+    from repro_torch.runtime import land_prefill
+    dev = prompts.device
+    with torch.inference_mode():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, st = model.prefill(params, {"tokens": prompts})
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        land_prefill(cache, st)
+        del st
+        toks, margins = [], []
+        lg = logits
+        for i in range(n + 1):
+            top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+            toks.append(tok)
+            if i < n:
+                lg, cache = model.decode_step(params, cache, prompts.shape[1] + i, tok)
+        _sync(torch, dev)
+        t2 = time.perf_counter()
+    return (1e3 * (t1 - t0), 1e3 * (t2 - t1), torch.cat(toks, 1).cpu(),
+            torch.stack(margins, 1).cpu())
+
+
+def _f32_decode(torch, model, params, tokens):
+    """The model decoding `tokens` (B, S) token by token from an empty f32
+    cache with f32 parameters: the last step's logits."""
+    from repro_torch.models.param import tree_init
+    B, S = tokens.shape
+    cache = {k: v.float() for k, v in tree_init(model.cache_defs(B, S), 0,
+                                                   device=tokens.device).items()}
+    with torch.inference_mode():
+        for t in range(S):
+            ld, cache = model.decode_step(params, cache, t, tokens[:, t:t + 1])
+    return ld[:, -1].float().cpu()
+
+
+@contextlib.contextmanager
+def moe_probe(slices: int = 1):
+    """Inside this block the MoE layer counts its dropped (token, choice)
+    pairs into the dict it yields (``dropped`` of ``assigned``, and under
+    ``by_tokens`` by the token count of the call: a prefill's, a decode
+    step's).  With `slices` > 1 the layer on one rank routes each of
+    `slices` equal pieces of a sequence that splits on its own, with that
+    piece's capacity: the semantics of ``moe_ep`` on `slices` model ranks,
+    from the plain scatter path (a sequence that does not split, a decode
+    step, takes the unsharded layer, as ``moe_ep``'s fallback does)."""
+    import torch
+    from repro_torch.models import moe
+    real_slots, real_ffn = moe.slots, moe.moe_ffn
+    seen = {"dropped": 0, "assigned": 0, "by_tokens": {}}
+
+    def slots(ids, E, C):
+        pos, keep = real_slots(ids, E, C)
+        dropped = int((~keep).sum())
+        seen["dropped"] += dropped
+        seen["assigned"] += keep.numel()
+        by = seen["by_tokens"].setdefault(ids.shape[0], [0, 0])
+        by[0] += dropped
+        by[1] += keep.numel()
+        return pos, keep
+
+    def sliced(p, x, cfg, tp=None):
+        if x.shape[1] % slices:
+            return real_ffn(p, x, cfg, tp)
+        outs = [real_ffn(p, xs, cfg, tp) for xs in x.chunk(slices, dim=1)]
+        return torch.cat([y for y, _ in outs], 1), sum(a for _, a in outs) / slices
+
+    moe.slots = slots
+    if slices > 1:
+        moe.moe_ffn = sliced
+    try:
+        yield seen
+    finally:
+        moe.slots, moe.moe_ffn = real_slots, real_ffn
+
+
+def _f32_prefill(torch, model, params, tokens):
+    """The last logits of the model's prefill of `tokens` with f32
+    parameters, attention on its plain version (the flash kernel takes bf16
+    only), and the MoE layer's dropped pairs: (logits, drops)."""
+    with plain_attention(), moe_probe() as drops, torch.inference_mode():
+        logits, _ = model.prefill(params, {"tokens": tokens})
+    return logits[:, -1].float().cpu(), drops
+
+
+def _departures(same, margins) -> list:
+    """The first step at which each request's tokens depart (`same`, (B, n)
+    booleans), with the one-rank run's top-1 minus top-2 margin there."""
+    import numpy as np
+    out = []
+    for b in range(same.shape[0]):
+        off = np.nonzero(~same[b])[0]
+        if len(off):
+            out.append({"request": b, "step": int(off[0]),
+                        "one_rank_margin": float(margins[b, off[0]])})
+    return out
+
+
+def _tp_serve(torch, dist, dev, mesh, arch: str, layers) -> dict:
+    """One arch of the tp spawn's serving: the TP run (prefill bundle,
+    ``land_prefill``, ``Server.generate``) with its launches and times, the
+    model group's collectives at the path's shapes, then on rank 0 the same
+    requests on one rank (the same seed-0 weights) for the share of equal
+    greedy tokens and the margins where they depart (for the MoE family
+    also against one rank with ``moe_ep``'s local capacity in the prefill,
+    :func:`moe_probe`); then the f32 gates: the TP decode token by token,
+    and the TP prefill of the requests at the path's shape, each against
+    one rank's (the prefill against the local capacity's for the MoE
+    family, with each side's dropped pairs)."""
+    import numpy as np
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.core.collectives import tp_all_to_all, tp_reduce
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_init
+    from repro_torch.runtime import Server, build_serve_step, land_prefill
+    cfg = tp_config(arch, layers)
+    rank = dist.get_rank()
+    g = torch.Generator(device=dev).manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (TP_REQUESTS, TP_PROMPT), generator=g,
+                            device=dev)
+    rc_p = RunConfig(model=cfg, shape=ShapeConfig("p", TP_PROMPT, TP_REQUESTS, "prefill"))
+    rc_d = RunConfig(model=cfg, shape=ShapeConfig("d", TP_PROMPT + TP_NEW, TP_REQUESTS,
+                                                  "decode"))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    server = Server(rc_d, seed=0, mesh=mesh)
+    pb = build_serve_step(rc_p, "prefill", mesh=mesh)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    # warm-up: a prefill of every prompt's first TP_WARM tokens and one
+    # decode step, so that the timed run pays no first-call costs
+    warm = server.init_cache()
+    _, st = pb.fn(server.params, {"tokens": prompts[:, :TP_WARM]})
+    land_prefill(warm, st)
+    server.bundle.fn(server.params, warm, TP_WARM, prompts[:, TP_WARM:TP_WARM + 1])
+    del warm, st
+    cache = server.init_cache()
+    ops.reset_launch_counts()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, st = pb.fn(server.params, {"tokens": prompts})
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    land_prefill(cache, st)
+    del st
+    tok0 = torch.argmax(logits[:, -1:], dim=-1)
+    res = server.generate(tok0.cpu().numpy(), max_new=TP_NEW, prefill_pos=TP_PROMPT,
+                          cache=cache)
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    prefill_ms, decode_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+    launches = ops.launch_counts()
+    tp_tokens = np.concatenate([tok0.cpu().numpy(), res.tokens], 1)
+    del cache, logits
+    serve_s = time.perf_counter() - t0
+    d = cfg.d_model
+    coll = {"allreduce_decode_ms": _group_ms(
+                torch, dev, lambda x: tp_reduce(x, mesh.model_group),
+                torch.ones(TP_REQUESTS, 1, d, dtype=torch.bfloat16, device=dev)),
+            "allreduce_prefill_ms": _group_ms(
+                torch, dev, lambda x: tp_reduce(x, mesh.model_group),
+                torch.ones(TP_REQUESTS, TP_PROMPT, d, dtype=torch.bfloat16, device=dev))}
+    if cfg.moe is not None:
+        from repro_torch.models.moe import capacity
+        E = cfg.moe.num_experts
+        C = capacity(cfg.moe, TP_REQUESTS * TP_PROMPT // 2)
+        coll["all_to_all_prefill_ms"] = _group_ms(
+            torch, dev, lambda x: tp_all_to_all(x, mesh.model_group),
+            torch.ones(2, E // 2, C, d, dtype=torch.bfloat16, device=dev))
+        coll["all_to_all_prefill_shape"] = [2, E // 2, C, d]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+    del server, pb
+    _free(torch, dev)
+    # the same requests on one rank, while rank 1 waits
+    t0 = time.perf_counter()
+    one = None
+    if rank == 0:
+        model = build_model(cfg)
+        params = tree_init(model.param_defs(), 0, device=dev)
+        cache = tree_init(model.cache_defs(TP_REQUESTS, TP_PROMPT + TP_NEW), 0, device=dev)
+        _, _, toks, margins = _greedy_trace(torch, model, params, prompts, TP_NEW, cache)
+        same = tp_tokens == toks.numpy()
+        one = {"equal_token_share": float(same.mean()),
+               "departures": _departures(same, margins.numpy())}
+        if cfg.moe is not None:
+            cache = tree_init(model.cache_defs(TP_REQUESTS, TP_PROMPT + TP_NEW), 0,
+                              device=dev)
+            with moe_probe(mesh.model) as drops:
+                _, _, toks, margins = _greedy_trace(torch, model, params, prompts,
+                                                    TP_NEW, cache)
+            same = tp_tokens == toks.numpy()
+            one["local_capacity"] = {"equal_token_share": float(same.mean()),
+                                     "departures": _departures(same, margins.numpy()),
+                                     "dropped_by_tokens": drops["by_tokens"]}
+        del params, cache
+        _free(torch, dev)
+    dist.barrier()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the f32 gate: TP decode against one rank's, token by token
+    cfg32 = tp_config(arch, TP_F32_LAYERS.get(arch, layers))
+    toks32 = prompts[:TP_F32_ROWS, :TP_F32_TOKENS]
+    b32 = build_serve_step(RunConfig(model=cfg32, shape=ShapeConfig(
+        "d", TP_F32_TOKENS, TP_F32_ROWS, "decode")), "decode", mesh=mesh)
+    p32 = tree_map(lambda x: x.float(), b32.init_params(0))
+    tp32 = _f32_decode(torch, b32.model, p32, toks32)
+    # the MoE layer's capacity follows its token count: its prefill gate
+    # runs at the path's shape, a dense model's on TP_F32_ROWS prompts
+    pre = prompts if cfg.moe is not None else prompts[:TP_F32_ROWS]
+    tp_pre, tp_drops = _f32_prefill(torch, b32.model, p32, pre)
+    del p32, b32
+    _free(torch, dev)
+    f32 = {"dropped_tp_rank": tp_drops}
+    if rank == 0:
+        model = build_model(cfg32)
+        params = tree_map(lambda x: x.float(), tree_init(model.param_defs(), 0, device=dev))
+        one32 = _f32_decode(torch, model, params, toks32)
+        one_pre, one_drops = _f32_prefill(torch, model, params, pre)
+        f32.update(layers=cfg32.num_layers, rows=TP_F32_ROWS, tokens=TP_F32_TOKENS,
+                   prefill_shape=list(pre.shape),
+                   decode_tp_vs_one_rank_rel_l2=_rel_l2(tp32, one32))
+        if cfg.moe is not None:
+            with moe_probe(mesh.model):
+                local_pre, local_drops = _f32_prefill(torch, model, params, pre)
+            f32.update(prefill_tp_vs_one_rank_rel_l2=_rel_l2(tp_pre, local_pre),
+                       prefill_tp_vs_unsharded_rel_l2=_rel_l2(tp_pre, one_pre),
+                       dropped_one_rank_local_capacity=local_drops,
+                       dropped_one_rank_unsharded=one_drops)
+        else:
+            f32["prefill_tp_vs_one_rank_rel_l2"] = _rel_l2(tp_pre, one_pre)
+        del params
+        _free(torch, dev)
+    dist.barrier()
+    f32_s = time.perf_counter() - t0
+    return {"arch": arch, "layers": cfg.num_layers, "init_s": init_s,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "decode_ms_per_token": decode_ms / TP_NEW,
+            "tokens_per_s": TP_REQUESTS * TP_NEW / (decode_ms / 1e3),
+            "launches": launches, "collectives": coll,
+            "seconds": {"serve": serve_s, "one_rank": one_s, "f32": f32_s},
+            "peak_gb": peak, "one_rank": one, "f32": f32,
+            "tokens_head": tp_tokens[:2, :8].tolist()}
+
+
+def _tp_train(torch, dist, dev, mesh) -> dict:
+    """phi3.5-moe's training step on 1 x 1 x 2 (TP_TRAIN): seed-0 weights,
+    TP_TRAIN_STEPS steps on seeded batches, kernel counts reset before each."""
+    from repro_torch.configs import CommConfig, RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import batch_concrete
+    from repro_torch.runtime.step import build_train_step
+    arch, layers, seq = TP_TRAIN
+    cfg = tp_config(arch, layers)
+    rc = RunConfig(model=cfg, shape=ShapeConfig("train", seq, 1, "train"),
+                   comm=CommConfig(mode="hierarchical"),
+                   train=TrainConfig(lr=3e-4, total_steps=TP_TRAIN_STEPS, warmup_steps=1))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    b = build_train_step(rc, mesh)
+    state = b.init_state(0)
+    steps = []
+    for i in range(TP_TRAIN_STEPS):
+        batch = batch_concrete(cfg, "train", 1, seq, seed=i, device=dev)
+        ops.reset_launch_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = b.fn(state, batch)
+        loss = float(m["loss"])
+        _sync(torch, dev)
+        steps.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                      "aux_loss": float(m["aux_loss"]),
+                      "time_s": time.perf_counter() - t0,
+                      "launches": ops.launch_counts()})
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+    del state, b
+    _free(torch, dev)
+    return {"arch": arch, "layers": layers, "seq_len": seq, "steps": steps,
+            "params": cfg.param_count(), "peak_gb": peak}
+
+
+def _tp_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One rank of the tp phase's 1 x 1 x 2 spawn: TP_SERVE's archs, then
+    TP_TRAIN; writes its report."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    timeout = datetime.timedelta(seconds=spec["gloo_timeout_s"])
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                            timeout=timeout)
+    try:
+        dev = torch.device("cpu")
+        if spec["device"] != "cpu":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        mesh = make_local_mesh(model=2, device=dev, timeout=timeout)
+        rep = {"rank": rank, "model_index": mesh.model_index, "serve": {}}
+        report = os.path.join(out, f"tp.rank{rank}.json")
+        for arch, layers in spec["serve"]:
+            rep["serve"][arch] = _tp_serve(torch, dist, dev, mesh, arch, layers)
+            with open(report, "w") as f:
+                json.dump(rep, f)
+        rep["train"] = _tp_train(torch, dist, dev, mesh)
+        with open(report, "w") as f:
+            json.dump(rep, f)
+    except BaseException:
+        _say_failed(rank)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch, out_dir: str, smi: str, train: dict) -> dict:
+    """Tensor and expert parallelism on the card.  The qwen1.5-0.5b runs on
+    2 x 1 x 2 ran in :func:`phase_families_train`'s 2 x 2 spawn; this
+    checks them (:func:`_check_tp_run`) and holds the no-codec run's step-1
+    loss to the train phase's no-codec 2 x 1 run on the same batch (`train`,
+    or its report when the train phase was not asked) within TP_LOSS_TOL.  Then one spawn of 2 ranks (1 x 1 x 2, expandable
+    segments, a host memory watch, :func:`_tp_rank`): serving llama3.2-3b
+    and phi3.5-moe (TP_SERVE) with the gates: the f32 decode against one
+    rank's within WHOLE_F32_TOL relative L2, the share of bf16 greedy
+    tokens equal to one rank's with the margins where they depart, both
+    ranks' tokens equal, flash and rmsnorm launched as the path needs; and
+    phi3.5-moe's training step (TP_TRAIN): finite losses and grad norms
+    equal on both ranks, the aux loss above 0, the kernels launched every
+    step as ``family_train_launches`` says."""
+    out = {"train": {}}
+    base = train.get("none") or _checked_runs(train_specs()[:1], out_dir)[0]
+    for codec in TP_CODECS:
+        row = _check_tp_run(codec, os.path.join(out_dir, f"tp_{codec}"), smi)
+        if codec == "none":
+            gap = abs(row["losses"][0] - base["losses"][0])
+            check(gap <= TP_LOSS_TOL, f"tp none: step-1 loss {row['losses'][0]} within "
+                  f"{TP_LOSS_TOL} of the 2 x 1 run's {base['losses'][0]}")
+            row["step1_loss_gap_to_2x1"] = gap
+        out["train"][codec] = row
+        emit({"phase": "tp", "run": f"qwen1.5-0.5b-{codec}", **row})
+    t0 = time.perf_counter()
+    watch = _MemWatch("tp")
+    try:
+        with expandable_segments():
+            reps = _spawn(torch, _tp_rank, 2, out_dir,
+                          dict(TP_SPEC, serve=list(TP_SERVE)), "tp")
+    finally:
+        watch.stop()
+    out["spawn_s"] = time.perf_counter() - t0
+    for arch, _ in TP_SERVE:
+        r0, r1 = reps[0]["serve"][arch], reps[1]["serve"][arch]
+        cfg = tp_config(arch, r0["layers"])
+        L = cfg.num_layers
+        want = {"flash_attention": L, "rmsnorm": (2 * L + 1) * (1 + TP_NEW)}
+        for r, x in enumerate((r0, r1)):
+            check(all(x["launches"][k] == v for k, v in want.items()),
+                  f"tp {arch} rank {r}: launches {x['launches']}, the path's {want}")
+        check(r0["tokens_head"] == r1["tokens_head"], f"tp {arch}: both ranks' tokens")
+        for k in ("decode_tp_vs_one_rank_rel_l2", "prefill_tp_vs_one_rank_rel_l2"):
+            f = r0["f32"][k]
+            check(f <= WHOLE_F32_TOL, f"tp {arch}: f32 {k} {f} <= {WHOLE_F32_TOL}")
+        r0["f32"]["dropped_tp"] = {
+            k: r0["f32"]["dropped_tp_rank"][k] + r1["f32"]["dropped_tp_rank"][k]
+            for k in ("dropped", "assigned")}
+        row = {"card": smi, "mesh": "1x1x2", "requests": TP_REQUESTS, "prompt": TP_PROMPT,
+               "new_tokens": TP_NEW, **{k: v for k, v in r0.items() if k != "tokens_head"},
+               "peak_gb_by_rank": [r0["peak_gb"], r1["peak_gb"]]}
+        out[arch] = row
+        emit({"phase": "tp", "run": f"serve-{arch}", **row})
+    t = [reps[r]["train"] for r in range(2)]
+    cfg = tp_config(TP_TRAIN[0], TP_TRAIN[1])
+    want = family_train_launches(cfg)
+    for i in range(TP_TRAIN_STEPS):
+        a, b = t[0]["steps"][i], t[1]["steps"][i]
+        check(math.isfinite(a["loss"]) and a["loss"] == b["loss"]
+              and a["grad_norm"] == b["grad_norm"] and a["aux_loss"] > 0,
+              f"tp phi train step {i}: losses {a['loss']}, {b['loss']}, norms "
+              f"{a['grad_norm']}, {b['grad_norm']}, aux {a['aux_loss']}")
+        for r, x in enumerate((a, b)):
+            check(all(x["launches"][k] == v for k, v in want.items()),
+                  f"tp phi train rank {r} step {i}: launches {x['launches']}, {want}")
+    import numpy as np
+    step_s = float(np.median([s["time_s"] for s in t[0]["steps"][1:]]))
+    out["phi_train"] = {"card": smi, "mesh": "1x1x2", **t[0],
+                        "step_ms_median_steps_2_3": 1e3 * step_s,
+                        "tokens_per_s": TP_TRAIN[2] / step_s,
+                        "peak_gb_by_rank": [t[0]["peak_gb"], t[1]["peak_gb"]]}
+    emit({"phase": "tp", "run": "train-phi3.5-moe", **out["phi_train"]})
     return out
 
 
@@ -4420,15 +5035,16 @@ def main() -> int:
     lap("profile")
     fam = phase_families(torch, dev, smi) if "families" in phases else {}
     lap("families")
-    ftrain, train, zero, bkt, ring, sites, tune = {}, {}, {}, {}, {}, {}, {}
+    ftrain, train, zero, bkt, ring, sites, tune, tp = {}, {}, {}, {}, {}, {}, {}, {}
     route, ckpt, facade, chaos, elastic = {}, {}, {}, {}, {}
-    if any(p in phases for p in ("families_train", "train", "zero", "buckets", "ring",
-                                 "sites", "autotune", "route", "ckpt", "facade",
-                                 "chaos", "elastic")):
+    if any(p in phases for p in ("families_train", "train", "zero", "buckets", "tp",
+                                 "ring", "sites", "autotune", "route", "ckpt",
+                                 "facade", "chaos", "elastic")):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
             # the train, zero and buckets phases' launcher runs go first in the
             # 2-pod spawns, before the families
-            if any(p in phases for p in ("families_train", "train", "zero", "buckets")):
+            if any(p in phases for p in ("families_train", "train", "zero", "buckets",
+                                         "tp")):
                 ftrain = phase_families_train(torch, d, smi, phases)
             if "train" in phases:
                 train = phase_train(torch, d)
@@ -4437,6 +5053,9 @@ def main() -> int:
             if "buckets" in phases:
                 bkt = phase_buckets(torch, d, zero)
             lap("train_spawns")
+            if "tp" in phases:
+                tp = phase_tp(torch, d, smi, train)
+                lap("tp")
             if "ring" in phases:
                 ring = phase_ring(torch, d)
                 lap("ring")
@@ -4510,6 +5129,17 @@ def main() -> int:
                          "launches_elastic_4x1": on_elastic.get(name, 0),
                          "launches_restart_1x4": on_restart.get(name, 0),
                          "launches_serve_chaos": on_serve_chaos.get(name, 0),
+                         "launches_tp_2x1x2_int8": tp.get("train", {}).get(
+                             "int8", {}).get("launches_rank0", {}).get(name, 0),
+                         "launches_tp_serving": {
+                             a: tp[a]["launches"].get(name, 0)
+                             for a, _ in TP_SERVE if a in tp},
+                         "launches_tp_phi_train": (
+                             tp["phi_train"]["steps"][-1]["launches"].get(name, 0)
+                             if "phi_train" in tp else 0),
+                         **({"tp_rows": [r for r in krows[name]
+                                         if r.get("on_path") == "tp"]}
+                            if any(r.get("on_path") == "tp" for r in krows[name]) else {}),
                          "launches_serving": eng.get("launches", {}).get(name, 0),
                          "launches_families": {
                              a: (r["runs"][-1]["launches"] if "runs" in r
@@ -4540,4 +5170,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_fork_server()

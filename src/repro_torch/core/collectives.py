@@ -39,6 +39,9 @@ bottleneck hop's knobs and notes a traffic plan for every hop
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -50,13 +53,60 @@ from repro_torch.core.path import WidePath
 from repro_torch.core.ring import ALGOS, wire_bytes_per_pod
 from repro_torch.core.tree import flatten, unflatten
 
+# ROADMAP.md queue A's item for what a model axis does not run yet
+TP_ITEM = "tensor parallelism and the production meshes"
+
+
 def queued(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md queue A, {item!r})")
 
 
+@dataclass(frozen=True)
+class TPView:
+    """The leaves of a sync as the JAX package's GSPMD sees them on a mesh
+    with a model axis: leaf i is block `index` of `size` equal blocks of a
+    whole leaf along ``dims[i]`` (None: the leaf is whole on every model
+    rank).  The reference then plans its chunks on the whole leaves, and
+    each device moves its part of each chunk; a sync given a view does the
+    same (:func:`streamed_psum`).  `group` is the model group."""
+    dims: tuple
+    size: int
+    index: int
+    group: object
+
+    def whole(self, leaves: list) -> list:
+        """``meta`` tensors of the whole leaves' shapes, f32."""
+        out = []
+        for x, t in zip(leaves, self.dims):
+            shape = list(x.shape)
+            if t is not None:
+                shape[t] *= self.size
+            out.append(torch.empty(shape, dtype=torch.float32, device="meta"))
+        return out
+
+    def part(self, c: st.Chunk, x: torch.Tensor) -> Optional[st.Chunk]:
+        """This rank's part of chunk `c` of a whole leaf, as a chunk of its
+        block `x` (`c` itself where the leaf is whole on every model rank),
+        or None when it holds none of it."""
+        t = self.dims[c.leaf]
+        if t is None or x.dim() == 0:
+            return c
+        start, size = c.start, c.size
+        if c.dim == t:
+            n = x.shape[t]
+            lo = max(c.start, self.index * n)
+            hi = min(c.start + c.size, (self.index + 1) * n)
+            if hi <= lo:
+                return None
+            start, size = lo - self.index * n, hi - lo
+        nbytes = (x.numel() // x.shape[c.dim]) * size * x.element_size()
+        return replace(c, start=start, size=size, nbytes=nbytes)
+
+
 def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
-                  tel_key=None, subgroup=None, chunks=None, log=None):
+                  tel_key=None, subgroup=None, chunks=None, log=None,
+                  tp_view: Optional[TPView] = None):
     """Chunked, streamed, paced psum of a tree over the pod axis of `mesh`.
 
     MPW_Send/Recv semantics for an all-reduce payload: the payload is split
@@ -85,7 +135,15 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     sent, ``wire_bytes_per_pod`` of its bytes under `algo`) and sent_bytes
     (what this rank handed to the group, summed over a ring's hops: int8
     payload plus scales and block padding, or bf16 / f32 bytes).  With one
-    pod (no pod group) the tree is returned as it is."""
+    pod (no pod group) the tree is returned as it is.
+
+    `tp_view` (a :class:`TPView`) plans and notes the chunks of the whole
+    leaves, as the reference does when the model axis is GSPMD's: each rank
+    reduces its part of each chunk, and its log's bytes are its part's (the
+    model ranks' logs sum to the plan's).  A chunk cut along a leaf's TP dim
+    with a wire codec is quantized whole, as GSPMD quantizes it: the model
+    ranks gather that leaf, reduce the whole chunk and keep their part.
+    Only the psum algorithm takes a view."""
     algo = path.comm.algo
     if algo not in ALGOS:
         raise ValueError(f"unknown comm algo {algo!r}; have {ALGOS}")
@@ -96,8 +154,11 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
                               chunks=chunks, tel_key=tel_key, log=log)
     leaves, td = flatten(tree)
     dim_list = st.normalize_dims(leaves, dims)
+    if tp_view is not None and algo != "psum":
+        raise queued(f"the {algo!r} algorithm over model ranks", TP_ITEM)
+    planned = leaves if tp_view is None else tp_view.whole(leaves)
     if chunks is None:
-        chunks = st.plan_chunks(leaves, dim_list, path.chunk_bytes)
+        chunks = st.plan_chunks(planned, dim_list, path.chunk_bytes)
     buckets = st.assign_streams(chunks, path.streams)
     world = mesh.pod
     members = [int(p) for p in subgroup] if subgroup else None
@@ -122,40 +183,87 @@ def streamed_psum(tree, path: WidePath, mesh, dims=None, site_groups=None,
     groups = mesh.stream_groups(len(buckets))
 
     done: dict[int, list] = {i: [] for i in range(len(leaves))}
-    for w0 in range(0, len(buckets), per_wave):
-        wave = [(c, s, st.slice_chunk(leaves[c.leaf], c))
-                for s in range(w0, min(w0 + per_wave, len(buckets)))
-                for c in buckets[s]]
-        if idle:
-            landed = [(x, 0) for _, _, x in wave]
-        elif algo == "psum":
-            issued = [comp.reduce_start(x, c.dim, groups[s], compress)
-                      for c, s, x in wave]
-            landed = [(p.finish(), p.sent_bytes) for p in issued]
-        else:
-            landed = rg.drive(rg.lockstep([
-                rg.allreduce_steps(x, c.dim, groups[s], compress=compress,
-                                   bidirectional=algo == "ring2", tag=2 * k,
-                                   members=members)
-                for k, (c, s, x) in enumerate(wave)]))
-        # the wave has landed before the next one starts
-        for (c, s, x), (r, sent) in zip(wave, landed):
-            done[c.leaf].append((c, r))
-            if log is not None:
-                log.append({"leaf": c.leaf, "dim": c.dim, "start": c.start,
-                            "size": c.size, "stream": s,
-                            "payload_bytes": c.nbytes,
-                            "wire_bytes": wire_bytes_per_pod(
-                                x.numel() * x.element_size(), eff_world,
-                                algo=algo, compress=compress) * share,
-                            "sent_bytes": sent})
-
-    # the last wave's lists hold its chunks' results: let them go, so that
-    # stitching gives each chunk's memory back as it is placed
-    wave = landed = issued = None
+    if algo == "psum":
+        view = tp_view or TPView((None,) * len(leaves), 1, 0, None)
+        _psum_waves(leaves, buckets, per_wave, groups, view, compress,
+                    eff_world, share, done, log)
+    else:
+        for w0 in range(0, len(buckets), per_wave):
+            wave = [(c, s, st.slice_chunk(leaves[c.leaf], c))
+                    for s in range(w0, min(w0 + per_wave, len(buckets)))
+                    for c in buckets[s]]
+            if idle:
+                landed = [(x, 0) for _, _, x in wave]
+            else:
+                landed = rg.drive(rg.lockstep([
+                    rg.allreduce_steps(x, c.dim, groups[s], compress=compress,
+                                       bidirectional=algo == "ring2", tag=2 * k,
+                                       members=members)
+                    for k, (c, s, x) in enumerate(wave)]))
+            # the wave has landed before the next one starts
+            for (c, s, x), (r, sent) in zip(wave, landed):
+                done[c.leaf].append((c, r))
+                if log is not None:
+                    log.append({"leaf": c.leaf, "dim": c.dim, "start": c.start,
+                                "size": c.size, "stream": s,
+                                "payload_bytes": c.nbytes,
+                                "wire_bytes": wire_bytes_per_pod(
+                                    x.numel() * x.element_size(), eff_world,
+                                    algo=algo, compress=compress) * share,
+                                "sent_bytes": sent})
+        # the last wave's lists hold its chunks' results: let them go, so
+        # that stitching gives each chunk's memory back as it is placed
+        wave = landed = None
     out = [st.stitch_leaf(leaf, done[i]) if done[i] else leaf
            for i, leaf in enumerate(leaves)]
     return unflatten(td, out)
+
+
+def _psum_waves(leaves, buckets, per_wave, groups, view: TPView, compress,
+                eff_world, share, done, log) -> None:
+    """:func:`streamed_psum`'s waves with the psum algorithm: each chunk's
+    part that this rank holds (`view`; the whole chunk without a model
+    axis) reduced over its stream's group, the results appended to `done`
+    and noted in `log`."""
+    whole: dict[int, torch.Tensor] = {}    # leaves gathered over the model group
+
+    def source(c):
+        """(this rank's part of `c`, the tensor it reduces, whether that is
+        the whole chunk gathered over the model group)."""
+        x = leaves[c.leaf]
+        part = view.part(c, x)
+        if part is None:
+            return None, None, False
+        if compress == "none" or view.dims[c.leaf] != c.dim:
+            return part, st.slice_chunk(x, part), False
+        if c.leaf not in whole:
+            whole[c.leaf] = all_gather_dim(x.contiguous(), c.dim, view.group)
+        return part, st.slice_chunk(whole[c.leaf], c), True
+
+    for w0 in range(0, len(buckets), per_wave):
+        wave = [(c, s, *source(c))
+                for s in range(w0, min(w0 + per_wave, len(buckets)))
+                for c in buckets[s]]
+        issued = [None if x is None else
+                  comp.reduce_start(x, c.dim, groups[s], compress)
+                  for c, s, _, x, _ in wave]
+        # the wave has landed before the next one starts
+        for (c, s, part, x, full), p in zip(wave, issued):
+            sent = nb = 0
+            if p is not None:
+                r, sent = p.finish(), p.sent_bytes
+                nb = part.nbytes if full else x.numel() * x.element_size()
+                if full:     # this rank's rows of the whole chunk
+                    r = r.narrow(c.dim, part.start + view.index
+                                 * leaves[c.leaf].shape[c.dim] - c.start, part.size)
+                done[c.leaf].append((part, r))
+            if log is not None:
+                log.append({"leaf": c.leaf, "dim": c.dim, "start": c.start,
+                            "size": c.size, "stream": s,
+                            "payload_bytes": 0 if part is None else part.nbytes,
+                            "wire_bytes": wire_bytes_per_pod(
+                                nb, eff_world, algo="psum", compress=compress) * share,
+                            "sent_bytes": sent})
 
 
 def site_allreduce(tree, path: WidePath, mesh, site_groups, dims=None,
@@ -307,16 +415,18 @@ def _around_pod(tree, mesh, dims, keep_scattered: bool, cross):
 
 def hierarchical_allreduce(tree, path: WidePath, mesh, dims,
                            keep_scattered: bool = False, site_groups=None,
-                           log=None):
+                           log=None, tp_view: Optional[TPView] = None):
     """RS(data) -> streamed cross-pod psum -> AG(data).
 
     `dims` is the per-leaf scatter-dim tree (``param.tree_fsdp_dims``).  A
     leaf whose dim is None, or does not divide over the data ranks, is
     psummed over data instead.  With `keep_scattered` the final all-gather is
-    skipped (ZeRO: the optimizer updates shards)."""
+    skipped (ZeRO: the optimizer updates shards).  `tp_view`: see
+    :func:`streamed_psum`."""
     return _around_pod(tree, mesh, dims, keep_scattered, lambda scat, dim_list:
                        streamed_psum(scat, path, mesh, dims=dim_list,
-                                     site_groups=site_groups, log=log))
+                                     site_groups=site_groups, log=log,
+                                     tp_view=tp_view))
 
 
 def local_site_allreduce(tree, path: WidePath, mesh, dims,
@@ -339,7 +449,8 @@ def local_site_allreduce(tree, path: WidePath, mesh, dims,
                        [psum_group(g, pods) for g in scat])
 
 
-def gateway_allreduce(tree, path: WidePath, mesh, log=None):
+def gateway_allreduce(tree, path: WidePath, mesh, log=None,
+                      tp_view: Optional[TPView] = None):
     """The user-space Forwarder: the pod's data rank 0 relays all WAN
     traffic.  In-pod all-reduce; the streamed cross-pod psum, which every
     data rank runs over its own pod group, the non-gateway ranks on zeros;
@@ -350,24 +461,160 @@ def gateway_allreduce(tree, path: WidePath, mesh, log=None):
     if mesh is None or mesh.pod_group is None:
         return unflatten(td, leaves)
     if group is None:
-        return streamed_psum(unflatten(td, leaves), path, mesh, log=log)
+        return streamed_psum(unflatten(td, leaves), path, mesh, log=log,
+                             tp_view=tp_view)
     is_gw = mesh.data_index == 0
     masked = [g if is_gw else torch.zeros_like(g) for g in leaves]
     crossed = flatten(streamed_psum(unflatten(td, masked), path, mesh,
-                                    log=log))[0]
+                                    log=log, tp_view=tp_view))[0]
     return unflatten(td, [psum_group(g if is_gw else torch.zeros_like(g), group)
                           for g in crossed])
 
 
 def wide_allreduce(tree, path: WidePath, mesh, *, dims=None, site_groups=None,
-                   log=None):
+                   log=None, tp_view: Optional[TPView] = None):
     """Dispatch on ``CommConfig.mode``: the one entry point the runtime uses."""
     mode = path.comm.mode
     if mode == "flat":
         return flat_allreduce(tree, mesh)
     if mode == "gateway":
-        return gateway_allreduce(tree, path, mesh, log=log)
+        return gateway_allreduce(tree, path, mesh, log=log, tp_view=tp_view)
     if mode == "hierarchical":
         return hierarchical_allreduce(tree, path, mesh, dims,
-                                      site_groups=site_groups, log=log)
+                                      site_groups=site_groups, log=log,
+                                      tp_view=tp_view)
     raise ValueError(f"unknown comm mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor and expert parallelism
+# ---------------------------------------------------------------------------
+#
+# Megatron's conjugate pairs over a model group.  The model ranks compute the
+# same loss, so the cotangent of a tensor that every rank holds whole is the
+# same on every rank: a sum in the forward passes it through unchanged, and
+# an identity whose outputs feed rank-local work sums their cotangents.  The
+# sums run in rank order through host copies (:func:`psum_group`), so every
+# rank gets the same bits.
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_group(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum_group(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Tiled all-gather along `dim` forward; the backward keeps this rank's
+    block of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, dim=ctx.dim)[i].contiguous(), None, None
+
+
+class _SplitToGroup(torch.autograd.Function):
+    """This rank's block along `dim` forward; the backward all-gathers the
+    blocks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n, i = dist.get_world_size(group), dist.get_rank(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"split: dim {dim} of shape {tuple(x.shape)} does "
+                             f"not split over {n} ranks")
+        return x.chunk(n, dim=dim)[i].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=False)``
+    over `group`: `x` is (n, ...) with block j bound for rank j; the result's
+    block j is rank j's block bound for this rank.  Through a host copy (a
+    pinned one from the card), as the in-pod stages."""
+    if x.shape[0] != dist.get_world_size(group):
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
+                         f"group's {dist.get_world_size(group)} ranks")
+    send = comp._host(x)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.to(x.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`, whose backward is the same exchange of the
+    cotangents (the reverse all-to-all)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """`x`, whose gradient is summed over `group` (the input of column-parallel
+    work, a replicated weight used on rank-local tokens); `x` without a
+    group."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over `group` (the output of row-parallel work), whose
+    gradient passes through; `x` without a group."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `x` joined along `dim` in rank order; its gradient is
+    this rank's block.  `x` without a group."""
+    return x if group is None else _GatherFromGroup.apply(x, dim, group)
+
+
+def tp_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of `x` along `dim`; its gradient is gathered from
+    every rank's.  `x` without a group."""
+    return x if group is None else _SplitToGroup.apply(x, dim, group)
+
+
+def tp_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable :func:`all_to_all`."""
+    return _AllToAll.apply(x, group)
+
+
+def tp_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of `x` over `group`, not differentiated."""
+    if group is None:
+        return x.detach()
+    return _gathered(x.detach().contiguous(), group).amax(0)

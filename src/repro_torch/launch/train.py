@@ -41,6 +41,12 @@ ranks again for each.
 
 ``--layers N`` keeps the model's first N layers at its published widths
 (the port's own flag: a run cut to fit a card's memory or a time budget).
+``--model M`` (the port's own flag too) gives the mesh a model axis of M
+ranks, ``pods`` x ``ranks // (pods * M)`` x M: tensor and expert
+parallelism for the dense and moe families, every model rank of a (pod,
+data) coordinate on the same rows; ``--route``, ``--ckpt-dir`` and the
+other features that ROADMAP.md keeps queued on a model axis stop the run
+naming their item.
 
 ``--ckpt-dir`` (with ``--ckpt-every``) checkpoints the run, rank 0 writing,
 and a restart with the same directory restores the newest checkpoint;
@@ -85,6 +91,7 @@ import torch.distributed as dist
 from repro_torch.configs import (SHAPES, CommConfig, RunConfig, ShapeConfig,
                                  TrainConfig, get_config, smoke_config)
 from repro_torch.core.chaos import ChaosMonitor, get_incident_log
+from repro_torch.core.collectives import TP_ITEM
 from repro_torch.core.membership import SiteMembership
 from repro_torch.core.telemetry import get_telemetry
 from repro_torch.core.topology import cosmogrid_topology
@@ -95,8 +102,8 @@ from repro_torch.runtime import Trainer
 
 # JAX launcher flags that this slice does not run, with their ROADMAP item
 QUEUED_FLAGS = {
-    "production_mesh": "tensor parallelism and the production meshes",
-    "multi_pod": "tensor parallelism and the production meshes",
+    "production_mesh": TP_ITEM,
+    "multi_pod": TP_ITEM,
 }
 
 
@@ -122,8 +129,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--pods", type=int, default=1,
                     help="pods (the WAN axis of the mesh)")
     ap.add_argument("--ranks", type=int, default=None,
-                    help="ranks in all, one process each (default --pods); "
-                         "data ranks per pod = ranks // pods")
+                    help="ranks in all, one process each (default --pods "
+                         "x --model); data ranks per pod = ranks // (pods x model)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model ranks (tensor parallelism) per (pod, data) "
+                         "coordinate (not a flag of the JAX launcher)")
     ap.add_argument("--data", default="synthetic", choices=["synthetic", "binary"])
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--device", default="cuda",
@@ -180,10 +190,12 @@ def _check_flags(args) -> None:
         raise SystemExit(f"--layers {args.layers}: {args.arch} has "
                          f"{cfg.num_layers} layers")
     if args.ranks is None:
-        args.ranks = args.pods
-    if args.pods < 1 or args.ranks < 1 or args.ranks % args.pods:
+        args.ranks = args.pods * args.model
+    if (args.pods < 1 or args.model < 1 or args.ranks < 1
+            or args.ranks % (args.pods * args.model)):
         raise SystemExit(f"--ranks {args.ranks} does not split into "
-                         f"--pods {args.pods} equal pods")
+                         f"--pods {args.pods} equal pods of --model "
+                         f"{args.model} ranks")
     for flag, item in QUEUED_FLAGS.items():
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to PyTorch "
@@ -254,7 +266,8 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
     seq = args.seq_len or (64 if args.smoke else base.seq_len)
     gb = args.global_batch or (8 if args.smoke else base.global_batch)
     shape = ShapeConfig(base.name, seq, gb, "train")
-    mesh = make_local_mesh(pod=args.pods, data=args.ranks // args.pods, device=dev)
+    mesh = make_local_mesh(pod=args.pods, data=args.ranks // (args.pods * args.model),
+                           model=args.model, device=dev)
     if comm is None:
         comm = CommConfig(mode=args.mode, streams=args.streams,
                           chunk_mb=args.chunk_mb, compress=args.compress,
@@ -324,7 +337,8 @@ def train(args, rank: int = 0, comm: Optional[CommConfig] = None) -> dict:
         tel.path(f"{path.key}/bkt{b.index}").plan.__dict__ for b in plan_b.buckets]
     report = {"rank": rank, "pods": args.pods, "ranks": args.ranks,
               "data": mesh.data, "pod_index": mesh.pod_index,
-              "data_index": mesh.data_index, "zero": trainer.bundle.zero,
+              "data_index": mesh.data_index, "model": mesh.model,
+              "model_index": mesh.model_index, "zero": trainer.bundle.zero,
               "device": str(dev),
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),

@@ -6,18 +6,59 @@ Conventions, as in the JAX package:
   * activations are (B, S, ...);
   * attention params: wq (d, n_q), wk/wv (d, n_kv), wo (n_q, d), optional
     bq/bk/bv; n_q = H*Dh and n_kv = KH*Dh are the fused head dims.
+
+Tensor parallelism (:class:`TensorParallel`, a mesh's model axis) is
+Megatron's: attention and the SwiGLU MLP run on a rank's heads and ff
+columns with the layer functions here unchanged (the caller passes the
+rank's head counts and shards, and wraps the input in ``tp_copy`` and the
+output in ``tp_reduce``); the embedding and the cross-entropy are
+vocab-parallel (:func:`embed_lookup`, :func:`chunked_ce_loss` with `tp`).
 """
 from __future__ import annotations
 
 import math
 import os
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.collectives import tp_copy, tp_max, tp_reduce
 from repro_torch.kernels import ops
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """One rank's model axis: its process group, the group's size and the
+    rank's index in it (block `index` of every TP-sharded leaf)."""
+    group: object
+    size: int
+    index: int
+
+    @staticmethod
+    def of(mesh) -> Optional["TensorParallel"]:
+        """The model axis of `mesh`, or None with one model rank."""
+        if mesh is None or mesh.model == 1:
+            return None
+        return TensorParallel(mesh.model_group, mesh.model, mesh.model_index)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """The rows of `embed` at `tokens`.  With `tp` the table is this rank's
+    vocab block: each rank looks up the tokens in its block, zeros
+    elsewhere, and the model group sums them (every token's row from the
+    one rank that holds it, so the sum is exact)."""
+    if tp is None:
+        return embed[tokens]
+    Vl = embed.shape[0]
+    local = tokens - tp.index * Vl
+    inside = (local >= 0) & (local < Vl)
+    rows = embed[local.clamp(0, Vl - 1)]
+    return tp_reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)),
+                     tp.group)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -193,16 +234,37 @@ def _chunk_loss(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
     return ((lse - gold) * mf).sum(), mf.sum()
 
 
+def _chunk_loss_tp(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                   mc: torch.Tensor, tp: TensorParallel):
+    # vocab-parallel: `head` is this rank's (d, V/tp) block.  The max and the
+    # sum of exponentials come from every rank's block, and the gold logit
+    # from the one rank that holds it: two scalars a token cross the group,
+    # as the JAX package's masked one-hot sum costs under GSPMD
+    logits = (tp_copy(xc, tp.group) @ head).float()        # (B, chunk, V/tp)
+    Vl = logits.shape[-1]
+    m = tp_max(logits.amax(dim=-1), tp.group)
+    se = tp_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), tp.group)
+    lse = m + torch.log(se)
+    local = lc - tp.index * Vl
+    inside = (local >= 0) & (local < Vl)
+    gold = logits.gather(-1, local.clamp(0, Vl - 1)[..., None]).squeeze(-1)
+    gold = tp_reduce(torch.where(inside, gold, torch.zeros_like(gold)), tp.group)
+    mf = mc.float()
+    return ((lse - gold) * mf).sum(), mf.sum()
+
+
 def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
                     mask: Optional[torch.Tensor] = None,
-                    chunk: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+                    chunk: Optional[int] = None,
+                    tp: Optional[TensorParallel] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing the full (B, S, V) logits.
 
     Walks the sequence in chunks; each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``, the JAX package's
     ``jax.checkpoint``), bounding live logits to (B, chunk, V).  Returns
     (sum_loss, sum_count) in f32, summed over the chunks in order; the
-    caller normalizes."""
+    caller normalizes.  With `tp`, `head` is this rank's vocab block and
+    the loss is vocab-parallel; every model rank gets the same sums."""
     B, S, d = x.shape
     if chunk is None:
         chunk = int(os.environ.get("REPRO_CE_CHUNK", "512"))  # memory knob
@@ -218,8 +280,12 @@ def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S + pad, chunk):
         sl = slice(c0, c0 + chunk)
-        l, c = checkpoint(_chunk_loss, x[:, sl], head, labels[:, sl], m[:, sl],
-                          use_reentrant=False)
+        if tp is None:
+            l, c = checkpoint(_chunk_loss, x[:, sl], head, labels[:, sl], m[:, sl],
+                              use_reentrant=False)
+        else:
+            l, c = checkpoint(_chunk_loss_tp, x[:, sl], head, labels[:, sl],
+                              m[:, sl], tp, use_reentrant=False)
         sum_loss = sum_loss + l
         count = count + c
     return sum_loss, count

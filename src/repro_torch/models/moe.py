@@ -3,11 +3,16 @@
 
 Tokens are routed to per-expert capacity buffers, the experts run as one
 batched product over the expert dim, and the outputs are gathered back and
-combined with the renormalised gates.  The expert-parallel all-to-all of the
-JAX package (``moe_ep.py``, taken when the tensor-parallel axis has more than
-one device) waits for tensor parallelism: the port's mesh refuses ``model >
-1`` (:func:`repro_torch.launch.mesh.make_local_mesh`), so this path is the
-only one.
+combined with the renormalised gates.
+
+Over a model axis (`tp`) the experts are sharded E/tp a rank.  Where the
+shapes tile the axis (:func:`repro_torch.models.moe_ep.ep_applicable`) the
+layer is the expert-parallel all-to-all of ``moe_ep.py``, as the JAX
+package's ``moe_ffn`` dispatches to it; elsewhere (decode, a sequence that
+does not split) it is this scatter path over every token with each rank
+running its experts and the (E, C, d) expert outputs gathered over the
+model group before the combine, so that its numbers are the unsharded
+layer's (the JAX package's GSPMD fallback).
 
 Two places differ in form from the JAX package and not in result:
 
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core.collectives import tp_copy, tp_gather
 
 
 def capacity(cfg: MoEConfig, T: int) -> int:
@@ -57,11 +63,44 @@ def slots(ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor
     return pos, pos < C
 
 
-def moe_ffn(p: dict, x: torch.Tensor,
-            cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def dispatch(xt: torch.Tensor, flat_ids: torch.Tensor, pos: torch.Tensor,
+             keep: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """The (E, C, d) capacity buffer: each kept (token, choice) row of
+    `xt` (T, d) at its (expert, slot); dropped ones go to a spare slot C
+    that is cut off."""
+    k = flat_ids.numel() // xt.shape[0]
+    buf = torch.zeros((E, C + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    buf[flat_ids, torch.where(keep, pos, C)] = xt.repeat_interleave(k, dim=0)
+    return buf[:, :C]
+
+
+def experts(p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on their rows (E, C, d), batched over E."""
+    h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
+    return torch.bmm(h, p["down"])
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig,
+            tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32).
 
-    params: router (d, E), gate/up (E, d, f), down (E, f, d)."""
+    params: router (d, E), gate/up (E, d, f), down (E, f, d); with `tp` (a
+    ``layers.TensorParallel``) gate/up/down are this rank's E/tp experts
+    when E divides over the model ranks (else whole, and the layer runs as
+    on one rank)."""
+    from repro_torch.models import moe_ep
+    B, S, d = x.shape
+    E = cfg.num_experts
+    if tp is not None and E % tp.size == 0:
+        if moe_ep.ep_applicable(E, S, tp.size):
+            return moe_ep.moe_ffn_ep(p, x, cfg, tp)
+        return _moe_ffn(p, x, cfg, tp)
+    return _moe_ffn(p, x, cfg, None)
+
+
+def _moe_ffn(p: dict, x: torch.Tensor, cfg: MoEConfig, tp):
+    """The scatter path; with `tp` each rank runs its experts' rows of the
+    buffer and the outputs are gathered over the model group."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S
@@ -82,13 +121,16 @@ def moe_ffn(p: dict, x: torch.Tensor,
 
     # dispatch: each kept (expert, slot) gets its token's row
     safe_pos = torch.where(keep, pos, C - 1)
-    buf = torch.zeros((E, C + 1, d), dtype=xt.dtype, device=x.device)
-    buf[flat_ids, torch.where(keep, pos, C)] = xt.repeat_interleave(k, dim=0)
-    buf = buf[:, :C]
+    buf = dispatch(xt if tp is None else tp_copy(xt, tp.group), flat_ids,
+                   pos, keep, E, C)
 
-    # expert FFN, batched over E
-    h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
-    out = torch.bmm(h, p["down"])                         # (E, C, d)
+    # expert FFN, batched over E (over this rank's experts with `tp`)
+    if tp is not None:
+        El = E // tp.size
+        buf = buf[tp.index * El:(tp.index + 1) * El]
+    out = experts(p, buf)                                 # (E, C, d)
+    if tp is not None:
+        out = tp_gather(out, 0, tp.group)
 
     # combine: gather each token's k expert outputs, weight by gates
     picked = out[flat_ids, safe_pos]                      # (T*k, d)

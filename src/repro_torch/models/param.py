@@ -10,10 +10,17 @@ Under ZeRO a rank holds the shard of each leaf that the JAX package's
 ``NamedSharding`` over ``"data"`` gives its data index: the leaf cut into
 ``data`` equal blocks along its FSDP dim (:func:`fsdp_dim`), block i on data
 index i (:func:`shard_leaf`; :func:`gather_leaf` is the reverse).
+
+With tensor parallelism (a mesh of ``model > 1``) a rank first holds block
+``model_index`` of ``model`` equal blocks of each leaf along its TP dim
+(:func:`tp_dim`, the JAX package's ``spec_for``: the dim whose logical axis
+is in ``TP_LOGICAL`` and divides by the model size; an indivisible vocab
+stays replicated), then its ZeRO block of that, as ``NamedSharding`` lays
+out a dim sharded over ``("model", "data")``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -93,32 +100,71 @@ def gather_leaf(shards: list, dim: Optional[int]) -> torch.Tensor:
     return torch.cat(list(shards), dim=dim)
 
 
-def shard_tree(tree, dims, mesh):
-    """This rank's shard of every leaf of `tree` (full leaves), cut along the
-    leaf's dim of `dims` (None: replicated) at ``mesh.data_index``; `tree`
-    as it is without a mesh or dims, or with one data rank."""
-    if mesh is None or dims is None or mesh.data == 1:
+def _none_like(tree):
+    return tree_map(lambda _: None, tree)
+
+
+def rank_shard(x, dim: Optional[int], tdim: Optional[int], mesh):
+    """This rank's shard of the full leaf `x` (a tensor or a numpy array):
+    its TP block along `tdim` at ``mesh.model_index``, then its ZeRO block of
+    that along `dim` at ``mesh.data_index``; `x` itself where neither cuts."""
+    if mesh is None:
+        return x
+    cut = lambda a, d, i, n: (shard_leaf(a, d, i, n) if isinstance(a, torch.Tensor)
+                              else _np_block(a, d, i, n))
+    if tdim is not None and mesh.model > 1:
+        x = cut(x, tdim, mesh.model_index, mesh.model)
+    if dim is not None and mesh.data > 1:
+        x = cut(x, dim, mesh.data_index, mesh.data)
+    return x
+
+
+def _np_block(a, dim: Optional[int], index: int, n: int):
+    """:func:`shard_leaf` of a numpy array: a view of block `index`."""
+    if dim is None or n == 1:
+        return a
+    a = np.asarray(a)
+    if a.shape[dim] % n:
+        raise ValueError(f"leaf of shape {a.shape} does not split into "
+                         f"{n} blocks along dim {dim}")
+    size = a.shape[dim] // n
+    return a[(slice(None),) * dim + (slice(index * size, (index + 1) * size),)]
+
+
+def shard_tree(tree, dims, mesh, tp_dims=None):
+    """This rank's shard of every leaf of `tree` (full leaves): its TP block
+    along the leaf's dim of `tp_dims` at ``mesh.model_index`` (None:
+    replicated over the model ranks), then its ZeRO block along its dim of
+    `dims` at ``mesh.data_index`` (None: replicated in the pod); `tree` as
+    it is without a mesh, or where neither cuts."""
+    if mesh is None or ((dims is None or mesh.data == 1)
+                        and (tp_dims is None or mesh.model == 1)):
         return tree
-    return tree_map(lambda x, d: shard_leaf(x, d, mesh.data_index, mesh.data),
-                    tree, dims)
+    dims = dims if dims is not None else _none_like(tree)
+    tp_dims = tp_dims if tp_dims is not None else _none_like(tree)
+    return tree_map(lambda x, d, t: rank_shard(x, d, t, mesh), tree, dims, tp_dims)
 
 
-def tree_init(defs, seed: int = 0, *, device="cuda", dims=None, mesh=None):
+def tree_init(defs, seed: int = 0, *, device="cuda", dims=None, mesh=None,
+              tp_dims=None):
     """Initialize a param tree from PDs: one `torch.Generator` seeded with
-    `seed` on `device`, drawn leaf by leaf in sorted-key order.  With `dims`
-    and a `mesh` of ``data > 1`` (ZeRO) each full leaf is drawn and only this
-    rank's shard kept, so the bits do not depend on the data size.  The draws
+    `seed` on `device`, drawn leaf by leaf in sorted-key order.  With a
+    `mesh` and `dims` (ZeRO, ``data > 1``) or `tp_dims` (``model > 1``) each
+    full leaf is drawn and only this rank's shard kept
+    (:func:`rank_shard`), so the bits do not depend on the mesh.  The draws
     differ from the JAX package's `jax.random` ones; tests that compare the
     two packages take the JAX package's tree through :func:`params_from_jax`
     or :func:`state_from_jax`."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    if mesh is None or dims is None or mesh.data == 1:
+    if mesh is None or ((dims is None or mesh.data == 1)
+                        and (tp_dims is None or mesh.model == 1)):
         return tree_map(lambda pd: init_one(pd, gen, device), defs)
-    return tree_map(lambda pd, d: shard_leaf(init_one(pd, gen, device), d,
-                                             mesh.data_index, mesh.data),
-                    defs, dims)
+    dims = dims if dims is not None else _none_like(defs)
+    tp_dims = tp_dims if tp_dims is not None else _none_like(defs)
+    return tree_map(lambda pd, d, t: rank_shard(init_one(pd, gen, device), d, t, mesh),
+                    defs, dims, tp_dims)
 
 
 def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
@@ -133,23 +179,30 @@ def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree_of_numpy, device="cuda", dtype=None):
+def params_from_jax(tree_of_numpy, device="cuda", dtype=None, *, mesh=None,
+                    dims=None, tp_dims=None):
     """The JAX package's parameter tree, its leaves converted with
     ``np.asarray``, as the port's tree: same names, same stacked
-    ``(layers, ...)`` layout, optionally cast to `dtype`."""
+    ``(layers, ...)`` layout, optionally cast to `dtype`.  With a `mesh` and
+    `dims` (ZeRO) or `tp_dims` (tensor parallelism) each leaf is this rank's
+    shard (:func:`shard_tree`), cut from the numpy array before it is
+    copied to `device`."""
     device = torch.device(device)
-    return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree_of_numpy)
+    tree = shard_tree(tree_of_numpy, dims, mesh, tp_dims)
+    return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree)
 
 
 def state_from_jax(state_of_numpy, device="cuda", *, mesh=None,
-                   dims=None) -> dict:
+                   dims=None, tp_dims=None) -> dict:
     """The JAX package's train state ``{"params", "opt": {"m", "v", "step"}}``,
     its full leaves converted with ``np.asarray``, as the port's: the
     parameters and moments as by :func:`params_from_jax` (dtypes kept), and
     ``step`` as a 0-d int32 tensor.  With `mesh` and `dims` (ZeRO: the train
-    bundle's ``dims``) the parameters and moments are this rank's shards."""
+    bundle's ``dims``) or `tp_dims` (the bundle's ``tp_dims``) the
+    parameters and moments are this rank's shards."""
     opt = state_of_numpy["opt"]
-    part = lambda t: shard_tree(params_from_jax(t, device), dims, mesh)
+    part = lambda t: params_from_jax(t, device, mesh=mesh, dims=dims,
+                                     tp_dims=tp_dims)
     return {"params": part(state_of_numpy["params"]),
             "opt": {"m": part(opt["m"]),
                     "v": part(opt["v"]),
@@ -185,6 +238,39 @@ def fsdp_dim(pd: PD, fsdp_size: int, tp_size: int = 16) -> Optional[int]:
 def tree_fsdp_dims(defs, fsdp_size: int, tp_size: int = 16):
     """Per-param :func:`fsdp_dim` (or None), in the tree's layout."""
     return tree_map(lambda pd: fsdp_dim(pd, fsdp_size, tp_size), defs)
+
+
+def tp_dim(pd: PD, tp_size: int) -> Optional[int]:
+    """The dim that carries tensor parallelism over `tp_size` model ranks:
+    the JAX package's ``spec_for`` puts ``"model"`` on each dim whose
+    logical axis is in ``TP_LOGICAL`` and divides by the size (so an
+    indivisible vocab stays replicated).  None with one model rank or no
+    such dim; a leaf with two such dims has no valid layout and raises."""
+    if tp_size <= 1:
+        return None
+    dims = [i for i, (a, s) in enumerate(zip(pd.axes, pd.shape))
+            if a in TP_LOGICAL and s % tp_size == 0]
+    if len(dims) > 1:
+        raise ValueError(f"PD {pd.shape} {pd.axes}: dims {dims} would all "
+                         f"carry the model axis")
+    return dims[0] if dims else None
+
+
+def tree_tp_dims(defs, tp_size: int):
+    """Per-param :func:`tp_dim` (or None), in the tree's layout."""
+    return tree_map(lambda pd: tp_dim(pd, tp_size), defs)
+
+
+def local_defs(defs, tp_size: int):
+    """The PDs of one rank's TP shards: each TP dim divided by `tp_size`."""
+    def local(pd: PD) -> PD:
+        d = tp_dim(pd, tp_size)
+        if d is None:
+            return pd
+        shape = list(pd.shape)
+        shape[d] //= tp_size
+        return replace(pd, shape=tuple(shape))
+    return tree_map(local, defs)
 
 
 def leaf_bytes_pd(pd: PD) -> int:

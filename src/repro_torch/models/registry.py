@@ -10,12 +10,19 @@ from repro_torch.models.mamba2 import MambaLM
 from repro_torch.models.transformer import Transformer
 
 
-def build_model(cfg: ModelConfig):
+def build_model(cfg: ModelConfig, tp=None):
+    """The model of `cfg`; with `tp` (a ``layers.TensorParallel``) over a
+    model axis, which only the dense and moe families take (the others
+    raise, naming their ROADMAP item)."""
+    if tp is not None and cfg.family not in ("dense", "moe"):
+        from repro_torch.core.collectives import TP_ITEM, queued
+        raise queued(f"the {cfg.family} family over {tp.size} model ranks",
+                     TP_ITEM)
     if cfg.family == "ssm":
         return MambaLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
-    return Transformer(cfg)
+    return Transformer(cfg, tp)
 
 
 def batch_concrete(cfg: ModelConfig, shape_kind: str, batch_size: int,

@@ -19,6 +19,19 @@ into layers, so the hook's backward runs once every layer of the segment has
 returned its gradient.
 The MoE family's FFN is ``models/moe.py``'s scatter path, its aux loss summed
 over the layers and added to the loss as the JAX package adds it.
+
+With `tp` (a :class:`repro_torch.models.layers.TensorParallel`, the mesh's
+model axis) the parameters are this rank's TP shards
+(``models/param.py`` ``tp_dim``) and the blocks run Megatron-style: each
+rank's attention on its H/tp query and KH/tp K/V heads (the JAX package's
+``heads`` attention mode) and its MLP on its ff columns, their input
+wrapped in ``tp_copy`` and their output summed over the model group by
+``tp_reduce``; the MoE FFN is expert-parallel (``models/moe.py``); the
+embedding, a tied head and the cross-entropy are vocab-parallel when the
+vocab divides by the group (else the table is whole on every rank), and
+the logits of ``logits``, ``prefill`` and ``decode_step`` are gathered
+whole on every rank.  The decode cache holds the rank's K/V heads.  The
+audio and vlm families and the other attention modes are queued.
 The vlm family prepends ``batch["patch_embeds"]`` (B, vision_tokens, d) to
 the token embeddings: RoPE positions run over the prefix, the prefill cache
 holds its K/V, and ``loss``/``logits`` drop its positions.  The audio family
@@ -33,6 +46,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import (TP_ITEM, queued, tp_copy, tp_gather,
+                                          tp_reduce)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -70,8 +85,18 @@ def unstack_layers(blocks: dict, n: int) -> list[dict]:
     return out
 
 
+def attn_shard_mode(num_kv_heads: int, tp: int) -> str:
+    """The JAX package's ``attn_shard_mode`` for the port: ``heads`` when the
+    K/V heads divide over the model ranks.  Its ``batch`` and ``seq`` modes
+    are queued and raise."""
+    if num_kv_heads % tp == 0:
+        return "heads"
+    raise queued(f"attention over {tp} model ranks with {num_kv_heads} K/V "
+                 f"heads (the 'batch' and 'seq' shard modes)", TP_ITEM)
+
+
 class Transformer:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tp: "L.TensorParallel | None" = None):
         self.cfg = cfg
         self.dims = L.AttnDims(
             num_heads=cfg.num_heads,
@@ -80,6 +105,33 @@ class Transformer:
             rope_theta=cfg.rope_theta,
             window=cfg.sliding_window,
         )
+        self.tp = tp
+        self.ldims = self.dims            # this rank's heads
+        self.vocab_tp = None              # the tp of a vocab-parallel table
+        if tp is not None:
+            if cfg.family not in ("dense", "moe"):
+                raise queued(f"the {cfg.family} family over {tp.size} model "
+                             f"ranks", TP_ITEM)
+            attn_shard_mode(cfg.num_kv_heads, tp.size)
+            self.ldims = self.dims._replace(num_heads=cfg.num_heads // tp.size,
+                                            num_kv_heads=cfg.num_kv_heads // tp.size)
+            if cfg.vocab_size % tp.size == 0:
+                self.vocab_tp = tp
+
+    def _col(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of rank-local (column-parallel) work."""
+        return x if self.tp is None else tp_copy(x, self.tp.group)
+
+    def _row(self, x: torch.Tensor) -> torch.Tensor:
+        """The output of rank-local (row-parallel) work, summed over ranks."""
+        return x if self.tp is None else tp_reduce(x, self.tp.group)
+
+    def _full_logits(self, x: torch.Tensor, params: dict) -> torch.Tensor:
+        """f32 logits over the whole vocab on every rank."""
+        if self.vocab_tp is None:
+            return (x @ self._head(params)).float()
+        out = (self._col(x) @ self._head(params)).float()
+        return tp_gather(out, -1, self.tp.group)
 
     # ------------------------------------------------------------------
     # parameter definitions
@@ -163,14 +215,15 @@ class Transformer:
     def _ffn(self, p: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The block's FFN on `h`: (y, aux), aux None off the MoE family."""
         if self.cfg.moe is not None:
-            return moe_lib.moe_ffn(p, h, self.cfg.moe)
-        return L.swiglu(p, h), None
+            return moe_lib.moe_ffn(p, h, self.cfg.moe, tp=self.tp)
+        return self._row(L.swiglu(p, self._col(h))), None
 
     def _block(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
                enc_out) -> tuple[torch.Tensor, torch.Tensor | None]:
         c = self.cfg
         h = L.rms_norm(x, lp["ln1"], c.norm_eps)
-        x = x + L.attention(lp["attn"], h, self.dims, positions=positions)
+        x = x + self._row(L.attention(lp["attn"], self._col(h), self.ldims,
+                                      positions=positions))
         if enc_out is not None:
             h = L.rms_norm(x, lp["lnx"], c.norm_eps)
             x = x + L.attention(lp["xattn"], h, self.dims, kv_x=enc_out)
@@ -197,7 +250,7 @@ class Transformer:
         vlm family's patch embeddings come first, cast to the embedding's
         dtype; the audio family adds sinusoidal positions."""
         c = self.cfg
-        x = params["embed"][batch["tokens"]]
+        x = L.embed_lookup(params["embed"], batch["tokens"], self.vocab_tp)
         n_prefix = 0
         if c.vision_tokens:
             patches = batch["patch_embeds"].to(x.dtype)            # (B, n_vis, d)
@@ -280,7 +333,8 @@ class Transformer:
                                               flush_segments=flush_segments)
         if n_prefix:
             x = x[:, n_prefix:]
-        sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels)
+        sum_loss, count = L.chunked_ce_loss(x, self._head(params), labels,
+                                            tp=self.vocab_tp)
         loss = sum_loss / torch.clamp(count, min=1.0)
         metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": count}
         if self.cfg.moe is not None:
@@ -293,7 +347,7 @@ class Transformer:
         x, _, n_prefix = self.hidden_states(params, batch, gather=gather)
         if n_prefix:
             x = x[:, n_prefix:]
-        return (x @ self._head(params)).float()
+        return self._full_logits(x, params)
 
     def _head(self, params: dict) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -311,10 +365,11 @@ class Transformer:
         Dh = c.resolved_head_dim
         W = self.cache_width(max_len)
         nL = c.num_layers
+        KH = self.ldims.num_kv_heads      # this rank's K/V heads
         kv = ("layers", "batch", "seq", "kv_heads", None)
         defs = {
-            "k": PD((nL, batch_size, W, c.num_kv_heads, Dh), kv, init="zeros"),
-            "v": PD((nL, batch_size, W, c.num_kv_heads, Dh), kv, init="zeros"),
+            "k": PD((nL, batch_size, W, KH, Dh), kv, init="zeros"),
+            "v": PD((nL, batch_size, W, KH, Dh), kv, init="zeros"),
         }
         if c.encoder_layers:
             src = c.source_len
@@ -330,7 +385,7 @@ class Transformer:
         the audio family cross-attends to the cache's ``xk``/``xv``.
         Returns (logits (B,1,V) f32, cache)."""
         c = self.cfg
-        x = params["embed"][tokens]
+        x = L.embed_lookup(params["embed"], tokens, self.vocab_tp)
         if not c.rope_theta:
             pos_t = torch.as_tensor(pos, device=x.device)
             if pos_t.dim() >= 1:
@@ -343,11 +398,11 @@ class Transformer:
         for i in range(c.num_layers):
             lp = layer_params(blocks, i)
             h = L.rms_norm(x, lp["ln1"], c.norm_eps)
-            a, _, _ = L.decode_attention(lp["attn"], h, self.dims,
+            a, _, _ = L.decode_attention(lp["attn"], self._col(h), self.ldims,
                                          k_cache=cache["k"][i],
                                          v_cache=cache["v"][i], pos=pos,
                                          ring=ring)
-            x = x + a
+            x = x + self._row(a)
             if c.encoder_layers:
                 h = L.rms_norm(x, lp["lnx"], c.norm_eps)
                 x = x + self._cross_decode(lp["xattn"], h, cache["xk"][i],
@@ -355,8 +410,7 @@ class Transformer:
             h = L.rms_norm(x, lp["ln2"], c.norm_eps)
             x = x + self._ffn(lp["ffn"], h)[0]
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
-        logits = (x @ self._head(params)).float()
-        return logits, cache
+        return self._full_logits(x, params), cache
 
     def _cross_decode(self, p: dict, x: torch.Tensor, xk: torch.Tensor,
                       xv: torch.Tensor) -> torch.Tensor:
@@ -388,9 +442,9 @@ class Transformer:
         for i in range(c.num_layers):
             lp = layer_params(blocks, i)
             h = L.rms_norm(x, lp["ln1"], c.norm_eps)
-            q, k, v = L._project_qkv(lp["attn"], h, self.dims, positions)
+            q, k, v = L._project_qkv(lp["attn"], self._col(h), self.ldims, positions)
             attn_out = self._prefill_attn(q, k, v)
-            x = x + attn_out.reshape(B, S, -1) @ lp["attn"]["wo"]
+            x = x + self._row(attn_out.reshape(B, S, -1) @ lp["attn"]["wo"])
             if enc_out is not None:
                 h = L.rms_norm(x, lp["lnx"], c.norm_eps)
                 a, xk, xv = self._cross_prefill(lp["xattn"], h, enc_out)
@@ -402,7 +456,7 @@ class Transformer:
             ks.append(self._to_ring(k, W, S))
             vs.append(self._to_ring(v, W, S))
         x = L.rms_norm(x[:, -1:, :], params["ln_f"], c.norm_eps)
-        logits = (x @ self._head(params)).float()
+        logits = self._full_logits(x, params)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         if enc_out is not None:
             cache.update(xk=torch.stack(xks), xv=torch.stack(xvs))

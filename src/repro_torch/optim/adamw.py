@@ -41,7 +41,14 @@ def init_opt_state(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(grads, dims=None, group=None) -> torch.Tensor:
+def _flat_dims(dims, n: int) -> list:
+    if dims is None:
+        return [None] * n
+    return dims if isinstance(dims, list) else flatten(dims)[0]
+
+
+def global_norm(grads, dims=None, group=None, tp_dims=None,
+                tp_group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32.  `dims` (a tree
     beside `grads`, or a flat list) marks the scattered leaves (a dim) and
     the replicated ones (None); `group` is the data-parallel group the
@@ -51,21 +58,31 @@ def global_norm(grads, dims=None, group=None) -> torch.Tensor:
     Under the reference's ZeRO the data-parallel axes are ("pod", "data"):
     after the cross-pod sync every pod holds the same shard, so each
     scattered leaf is counted once per pod (ROADMAP.md §C 6); the port
-    computes the same number."""
+    computes the same number.
+
+    With tensor parallelism `tp_dims` marks the leaves that are blocks of
+    a leaf sharded over the model group `tp_group` (a dim) and those whole
+    on every model rank (None): a sharded leaf's squares are summed over the
+    model group first, so each model rank gets the reference's norm of the
+    whole leaves, the replicated ones counted once."""
     leaves = flatten(grads)[0]
-    if dims is None:
-        dim_list = [None] * len(leaves)
-    else:
-        dim_list = dims if isinstance(dims, list) else flatten(dims)[0]
+    dim_list = _flat_dims(dims, len(leaves))
+    tp_list = _flat_dims(tp_dims if tp_group is not None else None, len(leaves))
     dev = leaves[0].device
-    scat = torch.zeros((), dtype=torch.float32, device=dev)
-    repl = torch.zeros((), dtype=torch.float32, device=dev)
-    for g, d in zip(leaves, dim_list):
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)
+    # [scattered, replicated] sums, of the model-sharded leaves and the rest
+    sums = {True: [zero(), zero()], False: [zero(), zero()]}
+    for g, d, t in zip(leaves, dim_list, tp_list):
         s = torch.sum(torch.square(g.float()))
+        part = sums[t is not None]
         if d is not None and group is not None:
-            scat = scat + s
+            part[0] = part[0] + s
         else:
-            repl = repl + s
+            part[1] = part[1] + s
+    if tp_group is not None:
+        sums[True] = [psum_group(x.reshape(1), tp_group).reshape(()) for x in sums[True]]
+    scat = sums[True][0] + sums[False][0]
+    repl = sums[True][1] + sums[False][1]
     if group is not None:
         scat = psum_group(scat, group)
     return torch.sqrt(scat + repl)
@@ -77,10 +94,11 @@ UPDATE_SLICE = 1 << 24
 
 def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
                  lr: torch.Tensor, *, dims=None, group=None, buckets=None,
-                 stacked=None):
+                 stacked=None, tp_dims=None, tp_group=None):
     """One AdamW step.  Returns (new_params, new_opt_state, stats).  `dims`
     and `group` go to :func:`global_norm` (ZeRO: the shards' dims and the
-    data-parallel group).  `buckets` (a ``BucketPlan``) with `stacked` (the
+    data-parallel group; `tp_dims` and `tp_group` the model axis's).
+    `buckets` (a ``BucketPlan``) with `stacked` (the
     per-leaf flags it was planned with, a flat list or a tree beside the
     parameters) applies the update bucket by bucket.  The new moments are
     written into `opt_state`'s tensors where they are contiguous (see the
@@ -89,7 +107,7 @@ def adamw_update(grads, opt_state: dict, params, tc: TrainConfig,
         raise ValueError("adamw_update: buckets= needs the stacked flags the "
                          "plan was built with (stacked=None)")
     step = opt_state["step"] + 1
-    norm = global_norm(grads, dims, group)
+    norm = global_norm(grads, dims, group, tp_dims, tp_group)
     if tc.grad_clip:
         scale = torch.clamp(tc.grad_clip / torch.clamp(norm, min=1e-12), max=1.0)
     else:

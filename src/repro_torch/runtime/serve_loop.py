@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.telemetry import get_telemetry
+from repro_torch.core.tree import tree_map
 from repro_torch.models.param import tree_init
 from repro_torch.runtime.step import build_serve_step
 
@@ -53,9 +54,34 @@ def land_prefill(cache: dict, state: dict) -> dict:
     return cache
 
 
+def take_shards(params, defs, mesh, tp_dims):
+    """This rank's TP blocks of the whole parameter tree `params` on `mesh`'s
+    model axis (`params` itself without one); a leaf that is not of its
+    PD's whole shape raises."""
+    if mesh is None or tp_dims is None:
+        return params
+    from repro_torch.models.param import rank_shard
+
+    def take(x, pd, t):
+        if tuple(x.shape) != tuple(pd.shape):
+            raise ValueError(f"parameter of shape {tuple(x.shape)}: Server(mesh=) "
+                             f"takes the whole leaves, this one's is {pd.shape}")
+        return rank_shard(x, None, t, mesh)
+    return tree_map(take, params, defs, tp_dims)
+
+
 class Server:
     """Greedy batched decoding against the decode StepBundle, on `device`
     ("cuda" by default; "cpu" runs the kernels' plain versions).
+
+    With a `mesh` (the reference's ``Server(rc, mesh, ...)``; its device is
+    the server's) of ``model > 1`` each model rank runs the decode on its
+    TP shards: of the whole tree `params`, as the reference places it
+    (:func:`take_shards`), or, without `params`, of the whole tree drawn
+    from `seed` leaf by leaf.
+    Every model rank decodes the same tokens (the logits are gathered whole
+    on every rank); rank 0 reports them.  The cache holds the rank's K/V
+    heads; land a TP prefill's state into it with :func:`land_prefill`.
 
     The serving engine (`runtime.serving`) layers the continuous batcher
     (`core.serving`) and the KV shipper (`core.kvship`) on top; this loop is
@@ -63,13 +89,15 @@ class Server:
     """
 
     def __init__(self, rc: RunConfig, params=None, seed: int = 0, *,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.rc = rc
-        self.bundle = build_serve_step(rc, kind="decode", device=device)
+        self.mesh = mesh
+        self.bundle = build_serve_step(rc, kind="decode", device=device,
+                                       mesh=mesh)
         self.device = self.bundle.device
-        self.params = (params if params is not None
-                       else tree_init(self.bundle.param_defs, seed,
-                                      device=self.device))
+        self.params = (take_shards(params, self.bundle.param_defs, mesh,
+                                   self.bundle.tp_dims)
+                       if params is not None else self.bundle.init_params(seed))
         # signatures whose first step has run: (B, pos kind, cache geometry).
         # The JAX package compiles once per signature and excludes that first
         # step from timings; eager PyTorch has no compile, but the first step

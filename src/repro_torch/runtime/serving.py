@@ -59,6 +59,8 @@ class ServingEngine:
         passed to the batcher: per-request SLOs with shedding, serve
         failover off evicted sites, incidents into `log`.
     device: where the model runs.
+    mesh: a mesh of one model rank, or None; a model axis is queued
+        (ROADMAP.md 'tensor parallelism and the production meshes').
 
     ``timings`` holds host-clock seconds of each prefill (to its first
     token), each KV ship with its landing in the decode cache, and each
@@ -73,7 +75,12 @@ class ServingEngine:
                  ship_timeout_s: float = 30.0, deadline_steps=None,
                  shed: bool = True, membership=None,
                  prefill_site: Optional[str] = None,
-                 decode_site: Optional[str] = None, log=None, device="cuda"):
+                 decode_site: Optional[str] = None, log=None, device="cuda",
+                 mesh=None):
+        if mesh is not None and mesh.model > 1:
+            from repro_torch.core.collectives import TP_ITEM, queued
+            raise queued("the ServingEngine and its KV ship over model ranks",
+                         TP_ITEM)
         if mode not in ("mono", "disagg"):
             raise ValueError(f"mode must be 'mono' or 'disagg', got {mode!r}")
         if mode == "disagg" and path is None:

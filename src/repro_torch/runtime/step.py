@@ -29,8 +29,27 @@ jitted shard_map.
 * :func:`build_delta_sync` and :func:`build_catchup`: local SGD's cross-site
   reconciliation and a rejoined site's catch-up (``core/localsgd.py``), as
   plain callables over the mesh.
-* :func:`build_serve_step`: prefill / decode on one device, under
-  ``torch.inference_mode()``.
+* :func:`build_serve_step`: prefill / decode under
+  ``torch.inference_mode()``, on one device or over the model axis of a
+  mesh.
+
+On a mesh with a model axis (``model > 1``) both builders run tensor and
+expert parallelism (``models/transformer.py``, ``models/moe_ep.py``) on the
+dense and moe families: each rank holds its TP shards (``bundle.tp_dims``,
+the JAX package's ``spec_for`` layout), every model rank of a (pod, data)
+coordinate takes the same batch rows, the replicated leaves' gradients come
+out equal on every model rank and the sharded leaves' stay local, and the
+cross-pod sync runs per model index over its pod group.  Its plan is the
+reference's: with no wire codec (and wherever the reference's sync is not
+wrapped in its manual ``{"model"}`` shard_map: without ZeRO, or in the
+gateway mode) the chunks of the whole leaves, each rank moving its part
+(``core/collectives.py`` ``TPView``); under ZeRO with a codec the chunks of
+the rank-local shards.  The gradient norm sums the sharded leaves' squares
+over the model group.  What stays queued on such a mesh raises
+``NotImplementedError`` naming ROADMAP.md's 'tensor parallelism and the
+production meshes': the ssm, hybrid, audio and vlm families, ``bucket_mb``,
+the ring algorithms, site groups and routes, local SGD, the attention modes
+other than ``heads``, and serving over data-parallel ranks.
 """
 from __future__ import annotations
 
@@ -48,16 +67,17 @@ from repro_torch.core import buckets as bk
 from repro_torch.core import streams as st
 from repro_torch.core import telemetry as tel
 from repro_torch.core.autotune import autotune_path
-from repro_torch.core.collectives import (_note_hop_plans, all_gather_dim,
-                                          local_site_allreduce, psum_group,
-                                          reduce_scatter_dim, streamed_psum,
-                                          wide_allreduce)
+from repro_torch.core.collectives import (TP_ITEM, TPView, _note_hop_plans,
+                                          all_gather_dim, local_site_allreduce,
+                                          psum_group, queued, reduce_scatter_dim,
+                                          streamed_psum, wide_allreduce)
 from repro_torch.core.overlap import accum_grads, flush_hook, modeled_exposure
 from repro_torch.core.path import INTERPOD, WidePath
 from repro_torch.core.tree import flatten, tree_map, unflatten
 from repro_torch.launch.roofline import modeled_compute_window
 from repro_torch.models import build_model
-from repro_torch.models.param import leaf_bytes_pd, tree_init
+from repro_torch.models.layers import TensorParallel
+from repro_torch.models.param import leaf_bytes_pd, tree_init, tree_tp_dims
 from repro_torch.optim import adamw_update, init_opt_state, lr_at
 from repro_torch.sharding import (dp_axes_of, map_with_dims, strip_layer_dim,
                                   tree_fsdp_dims)
@@ -89,14 +109,19 @@ class StepBundle:
     zero: bool = False
     bucket_plan: object = None         # BucketPlan when the sync is bucketed
     replan: Optional[Callable] = None  # re-notes this bundle's sync plan
+    tp_dims: object = None             # per-leaf TP dims on a model axis, else None
 
     def init_state(self, seed: int = 0) -> dict:
         """Parameters from `seed` and a fresh optimizer state, on the
-        bundle's device: the same bits on every rank, and under ZeRO this
-        rank's shards of them."""
-        params = tree_init(self.param_defs, seed, device=self.device,
-                           dims=self.dims, mesh=self.mesh)
+        bundle's device: the same bits on every rank, and under ZeRO or
+        tensor parallelism this rank's shards of them."""
+        params = self.init_params(seed)
         return {"params": params, "opt": init_opt_state(params)}
+
+    def init_params(self, seed: int = 0):
+        """Parameters from `seed`: this rank's shards, as in init_state."""
+        return tree_init(self.param_defs, seed, device=self.device,
+                         dims=self.dims, mesh=self.mesh, tp_dims=self.tp_dims)
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +391,11 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
             raise ValueError(f"site_groups {site_groups} must tile the pod "
                              f"axis of size {mesh.pod}")
     dev = resolve_device(mesh.device)
-    model = build_model(rc.model)
+    tp = TensorParallel.of(mesh)
+    if tp is not None:
+        _refuse_on_model_axis(rc, route=route, site_groups=site_groups,
+                              local_only=local_only)
+    model = build_model(rc.model, tp)
     defs = model.param_defs()
     data_size = mesh.data
     zero = bool(rc.train.zero1 and rc.comm.mode == "hierarchical"
@@ -375,6 +404,12 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
     dims_or_none = dims if zero else tree_map(lambda d: None, dims)
     dp = dp_axes_of(mesh)
     dp_group = mesh.group_of(dp)
+    tp_dims = tree_tp_dims(defs, mesh.model) if tp is not None else None
+    # the reference plans the chunks of the whole leaves unless its sync runs
+    # in its manual {"model"} shard_map (ZeRO with a wire codec)
+    tp_view = None
+    if tp is not None and not (zero and rc.comm.compress != "none"):
+        tp_view = TPView(tuple(flatten(tp_dims)[0]), tp.size, tp.index, tp.group)
 
     path = WidePath(axis="pod", comm=rc.comm, link=INTERPOD, name="train")
     if route is not None:
@@ -502,9 +537,10 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
             if zero:   # only the 1/D shards cross the pod axis
                 return streamed_psum(psum_replicated(grads, dims), path, mesh,
                                      dims=dims, site_groups=site_groups,
-                                     log=log)
+                                     log=log, tp_view=tp_view)
             return wide_allreduce(grads, path, mesh, dims=dims,
-                                  site_groups=site_groups, log=log)
+                                  site_groups=site_groups, log=log,
+                                  tp_view=tp_view)
 
     def fn(state: dict, batch: dict):
         params = state["params"]
@@ -520,7 +556,8 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
         new_params, new_opt, stats = adamw_update(
             grads, state["opt"], params, tc, lr, dims=dims_or_none,
             group=dp_group if zero else None, buckets=plan,
-            stacked=stacked_flags)
+            stacked=stacked_flags, tp_dims=tp_dims,
+            tp_group=None if tp is None else tp.group)
         if mesh.world_group is not None:
             lh = loss.detach().float().reshape(1).cpu()
             loss = (psum_group(lh, mesh.world_group) / dp_world).reshape(()).to(dev)
@@ -537,7 +574,27 @@ def build_train_step(rc: RunConfig, mesh, *, route=None, site_groups=None,
 
     return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
                       device=dev, mesh=mesh, dims=dims if zero else None,
-                      zero=zero, bucket_plan=plan, replan=replan)
+                      zero=zero, bucket_plan=plan, replan=replan,
+                      tp_dims=tp_dims)
+
+
+def _refuse_on_model_axis(rc: RunConfig, *, route=None, site_groups=None,
+                          local_only: bool = False) -> None:
+    """Raise, naming ROADMAP.md's item, for what a model axis does not run
+    yet in the training step."""
+    what = None
+    if rc.comm.bucket_mb > 0:
+        what = f"bucket_mb = {rc.comm.bucket_mb} (the bucketed sync)"
+    elif rc.comm.algo != "psum":
+        what = f"algo = {rc.comm.algo!r}"
+    elif site_groups is not None:
+        what = "site groups"
+    elif route is not None:
+        what = "a route"
+    elif local_only:
+        what = "local SGD"
+    if what is not None:
+        raise queued(f"{what} over model ranks", TP_ITEM)
 
 
 def build_delta_sync(rc: RunConfig, mesh, bundle: StepBundle, *,
@@ -582,7 +639,7 @@ def build_catchup(mesh, bundle: StepBundle, *, source_pod: int, target_pods):
 
 
 def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,
-                     device="cuda") -> StepBundle:
+                     device="cuda", mesh=None) -> StepBundle:
     """kind: "decode" (one token per row against a ``(B, seq_len)`` cache:
     ``fn(params, cache, pos, tokens) -> (logits, cache)``, the cache updated
     in place; the audio family's cache holds ``xk``/``xv`` too) or
@@ -590,16 +647,41 @@ def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,
     ``{"tokens": (B, S)}`` with the family's stub inputs as the JAX
     package's batch template has them: ``patch_embeds`` (B, vision_tokens,
     d) for the vlm family, ``source_frames`` (B, source_len, d) for the
-    audio family)."""
+    audio family).
+
+    `mesh` (the reference's argument; None: one device) with a model axis
+    serves with tensor and expert parallelism: the parameters are each
+    rank's TP shards (``bundle.tp_dims``; un-ZeRO'd while the TP shard is
+    under 8 GiB, as the reference keeps them), the cache holds the rank's
+    K/V heads (the reference's ``cache_spec``: kv_heads over ``model``), the
+    batch is whole on every model rank and so are the logits.  A mesh's
+    device is the step's.  On a mesh of more than one data-parallel rank,
+    a seq-sharded cache (K/V heads that do not divide over the model ranks)
+    and a TP shard over 8 GiB with ZeRO raise, naming ROADMAP.md's item."""
     kind = kind or rc.shape.kind
+    tp = TensorParallel.of(mesh)
+    if mesh is not None:
+        device = mesh.device
+        if mesh.pod * mesh.data > 1:
+            raise queued(f"serving over {mesh.pod * mesh.data} data-parallel "
+                         f"ranks", TP_ITEM)
+    if tp is not None:
+        shard_bytes = 2 * rc.model.param_count() // tp.size
+        if shard_bytes > 8 * 2**30 and rc.train.zero1 and mesh.data > 1:
+            raise queued("ZeRO-scattered serving parameters", TP_ITEM)
+        kv = max(rc.model.num_kv_heads, 1)
+        if rc.model.num_kv_heads and kv % tp.size:
+            raise queued(f"a seq-sharded cache ({kv} K/V heads over "
+                         f"{tp.size} model ranks)", TP_ITEM)
     dev = resolve_device(device)
-    model = build_model(rc.model)
+    model = build_model(rc.model, tp)
     defs = model.param_defs()
+    tp_dims = tree_tp_dims(defs, tp.size) if tp is not None else None
     path = WidePath(axis="pod", comm=rc.comm, name="serve")
     if kind == "decode":
         fn = torch.inference_mode()(model.decode_step)
         return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
-                          device=dev,
+                          device=dev, mesh=mesh, tp_dims=tp_dims,
                           cache_defs=model.cache_defs(rc.shape.global_batch,
                                                       rc.shape.seq_len))
     if kind != "prefill":
@@ -607,4 +689,4 @@ def build_serve_step(rc: RunConfig, kind: Optional[str] = None, *,
                          f"got {kind!r}")
     fn = torch.inference_mode()(model.prefill)
     return StepBundle(fn=fn, model=model, param_defs=defs, path=path,
-                      device=dev)
+                      device=dev, mesh=mesh, tp_dims=tp_dims)

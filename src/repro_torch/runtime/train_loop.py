@@ -71,7 +71,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.store import leaf_paths
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.autotune import OnlineTuner, hop_shares
-from repro_torch.core.collectives import all_gather_dim
+from repro_torch.core.collectives import TP_ITEM, all_gather_dim, queued
 from repro_torch.core.localsgd import LocalSGDController
 from repro_torch.core.retry import RetryPolicy, RetryState
 from repro_torch.core.telemetry import get_telemetry
@@ -156,6 +156,10 @@ class Trainer:
                  check_replicas: bool = False):
         self.rc = rc
         self.mesh = mesh
+        if mesh.model > 1:
+            _refuse_on_model_axis(checkpoints=ckpt_dir or replica_dir,
+                                  chaos_monitor=chaos, membership=membership,
+                                  online_autotuning=autotune_every)
         # `route` makes the cross-pod path a multi-hop Forwarder chain
         # (per-hop knobs and telemetry); `site_groups` makes the cross-pod
         # psum reduce intra-site before the slow hop
@@ -728,6 +732,16 @@ class InjectedFault(RuntimeError):
 
 
 _RECOVERABLE = (InjectedFault,)
+
+
+def _refuse_on_model_axis(**features) -> None:
+    """Raise, naming ROADMAP.md's item, for the Trainer's features that a
+    model axis does not run yet (checkpoints, chaos, membership, online
+    autotuning)."""
+    for what, on in features.items():
+        if on:
+            raise queued(f"the Trainer's {what.replace('_', ' ')} over model ranks",
+                         TP_ITEM)
 
 
 def elastic_restart(rc: RunConfig, old_trainer: Trainer, new_mesh, **kw) -> Trainer:

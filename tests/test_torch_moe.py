@@ -150,12 +150,17 @@ def test_overflow_drops_match_reference():
 
 
 def test_expert_parallel_path_waits_for_tensor_parallelism():
-    """Where the reference would take ``moe_ep`` (TP > 1), the port has no
-    mesh: it refuses ``model > 1`` naming the queue item."""
-    from repro_torch.launch.mesh import make_local_mesh
-    with pytest.raises(NotImplementedError,
-                       match="tensor parallelism and the production meshes"):
-        make_local_mesh(model=2)
+    """The expert-parallel path (``moe_ep``) is taken where the reference
+    takes it: a model axis of more than one rank that tiles the experts and
+    the sequence; one rank keeps the scatter path, and so do decode and a
+    sequence that does not split (tests/test_torch_moe_ep.py holds both
+    paths against the reference on 2 ranks)."""
+    from repro_torch.models import moe_ep
+    assert not moe_ep.ep_applicable(4, 8, 1)
+    assert moe_ep.ep_applicable(4, 8, 2)
+    assert not moe_ep.ep_applicable(4, 1, 2)      # decode
+    assert not moe_ep.ep_applicable(4, 3, 2)      # the sequence does not split
+    assert not moe_ep.ep_applicable(6, 8, 4)      # the experts do not tile
 
 
 @pytest.mark.parametrize("S", LENS)

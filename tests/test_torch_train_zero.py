@@ -250,10 +250,18 @@ def test_train_launcher_runs_two_pods_by_two_data_ranks_on_the_cpu(tmp_path):
 
 
 def test_what_stays_queued_names_its_roadmap_item():
-    from repro_torch.launch.mesh import make_local_mesh
+    """A model axis runs the dense and moe families; the ssm family on one
+    stays queued (tests/test_torch_tp.py holds the rest of the list), as do
+    the launcher's production meshes."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config, smoke_config
+    from repro_torch.launch.mesh import PodMesh
     from repro_torch.launch.train import main
+    from repro_torch.runtime.step import build_train_step
+    mesh = PodMesh(pod=1, data=2, model=2, rank=0, device=torch.device("cpu"))
+    rc = RunConfig(model=smoke_config(get_config("mamba2-780m")),
+                   shape=ShapeConfig("t", 32, 4, "train"))
     with pytest.raises(NotImplementedError, match="tensor parallelism and the production meshes"):
-        make_local_mesh(data=2, model=2, device="cpu")
+        build_train_step(rc, mesh)
     for flag in ("--production-mesh", "--multi-pod"):
         with pytest.raises(SystemExit, match="tensor parallelism and the production meshes"):
             main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", flag])

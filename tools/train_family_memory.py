@@ -5,6 +5,7 @@ budget of the card.
 
     python3 tools/train_family_memory.py [--archs a,b]
     python3 tools/train_family_memory.py --stages --archs phi3.5-moe-42b-a6.6b
+    python3 tools/train_family_memory.py --model 2 --archs phi3.5-moe-42b-a6.6b
 
 Card only.  For each arch of ``chip_smoke.FAMILY_TRAIN_RUNS`` (its first
 run: no codec, the run's tokens a pod), one spawn of 2 ranks sharing the
@@ -20,7 +21,10 @@ the budgets of 72 and 76 GB.  Prints one JSON line a family; what
 (PERF.md section 4).  ``--stages`` runs each family at its first probe
 depth only and records, on every rank, the peak and the live device memory
 before and after the step's gradient sync and its AdamW update (the first
-peak is the forward's and backward's).
+peak is the forward's and backward's).  ``--model 2`` probes the tp
+phase's training step instead (``chip_smoke._tp_train``: 1 pod x 1 data
+rank x 2 model ranks, one 4096-token sequence, tensor and expert
+parallelism) at the same two depths, one step each.
 """
 from __future__ import annotations
 
@@ -128,11 +132,65 @@ def probe(torch, cs, arch: str, out_dir: str) -> dict:
     return line
 
 
+def _tp_probe_rank(rank: int, init: str, out: str, spec: dict) -> None:
+    """One rank of 1 x 1 x 2: ``chip_smoke._tp_train`` of one step at each
+    depth of ``spec["depths"]``, the first depth's memory given back before
+    the next; writes {depth: peak GB}."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from repro_torch.launch.mesh import make_local_mesh
+    timeout = datetime.timedelta(seconds=spec["gloo_timeout_s"])
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                            timeout=timeout)
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        mesh = make_local_mesh(model=2, device=dev, timeout=timeout)
+        cs.TP_TRAIN_STEPS = 1
+        peaks = {}
+        for depth in spec["depths"]:
+            cs.TP_TRAIN = (spec["arch"], depth, cs.TP_TRAIN[2])
+            peaks[str(depth)] = cs._tp_train(torch, dist, dev, mesh)["peak_gb"]
+        with open(os.path.join(out, f"{spec['label']}.rank{rank}.json"), "w") as f:
+            json.dump(peaks, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def probe_tp(torch, cs, arch: str, out_dir: str) -> dict:
+    """Peak GB a rank of the tp phase's training step at the two depths of
+    PROBE_DEPTHS, and the deepest depth two ranks fit the budgets."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    depths = PROBE_DEPTHS[arch]
+    label = "tp_probe_" + arch.replace(".", "_")
+    t0 = time.perf_counter()
+    with cs.expandable_segments():
+        reps = cs._spawn(torch, _tp_probe_rank, 2, out_dir,
+                         dict(cs.TP_SPEC, arch=arch, depths=list(depths), label=label),
+                         label)
+    peaks = {d: max(r[str(d)] for r in reps) for d in depths}
+    (l1, p1), (l2, p2) = sorted(peaks.items())
+    b = (p2 - p1) / (l2 - l1)
+    a = p1 - b * l1
+    return {"arch": arch, "mesh": "1x1x2", "seq_len": cs.TP_TRAIN[2],
+            "peak_gb_by_depth": {str(d): [r[str(d)] for r in reps] for d in depths},
+            "a_gb": a, "b_gb_per_layer": b,
+            "deepest_within_budget": {
+                str(budget): min(cfg.num_layers, int((budget / 2 - a) // b))
+                if b > 0 else None for budget in (72.0, 76.0)},
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--archs", default=",".join(PROBE_DEPTHS))
     ap.add_argument("--stages", action="store_true",
                     help="memory around the sync and AdamW at the first depth")
+    ap.add_argument("--model", type=int, default=1, choices=(1, 2),
+                    help="2: the tp phase's step on 1 x 1 x 2")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -142,7 +200,7 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     with tempfile.TemporaryDirectory(prefix="train_family_memory_") as d:
         for arch in args.archs.split(","):
-            fn = stages if args.stages else probe
+            fn = stages if args.stages else probe_tp if args.model == 2 else probe
             print(json.dumps(fn(torch, cs, arch, d)), flush=True)
     return 0
 
